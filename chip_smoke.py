@@ -2,42 +2,65 @@
 
     python3 chip_smoke.py
 
-Builds every hand-written kernel of the port from zs3_tpu_torch/csrc,
-holds each against its plain PyTorch version on the card (and the
-space-to-batch dilated conv against cuDNN's), then drives
-`python -m zs3_tpu_torch.cli evaluate` at full width (DeepLabv3+
-ResNet-101, os16, 513x513, bf16, synthetic val, 2 unseen classes) and
-checks that every kernel of that path was launched and that what comes
-out is right; it times and profiles that eval loop, and compares the
-port on the card with the port on the CPU at a small size.  Each phase
-prints one JSON line; a failed phase exits nonzero.  The line before the
-last is the kernel table, the last line is {"ok": true, "device": {...}}.
-Needs one CUDA card; imports no JAX.
+Builds every hand-written kernel of the port from zs3_tpu_torch/csrc
+(one nvcc per source, all at once) and holds each against its plain
+PyTorch version on the card: K1 (upsample+argmax), K2 and K3 (the MMD's
+kernel sums and their gradient), and the space-to-batch dilated conv
+against cuDNN's.  Then it drives the port's two paths at full width
+(DeepLabv3+ ResNet-101, os16, 513x513, bf16, synthetic data, unseen
+split 2), each through `python -m zs3_tpu_torch.cli` with the launch
+counts set to 0 just before and read just after:
+
+  * `evaluate` (eval batch 4): one K1 launch per eval batch;
+  * `train-gmmn` (train batch 8, 128 pixels per class, 4 steps, then one
+    validation): each step launches K2 three times (fake-fake, real-real,
+    fake-real) and K3 twice (fake-fake once, for both of its equal sides,
+    and fake-real for x: only the generated features need a gradient),
+    and the validation one K1 per eval batch.
+
+It checks that what comes out is right, times and profiles both loops,
+and compares the port on the card with the port on the CPU at a small
+size (ResNet-50, 65x65, f32).  Each phase prints one JSON line; a failed
+phase exits nonzero.  The line before the last is the kernel table, the
+last line is {"ok": true, "device": {...}}.  Needs one CUDA card;
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
+import itertools
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock: covers the host queueing
-KERNEL_SOURCES = ("upsample_argmax",)
+SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock, the shortest sleep
+KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum")
 SLICE_ARGS = [
     "evaluate", "--dataset", "synthetic", "--backbone", "resnet101",
     "--out-stride", "16", "--crop-size", "513", "--base-size", "513",
     "--eval-batch-size", "4", "--compute-dtype", "bfloat16",
     "--unseen-split", "2", "--seed", "0", "--device", "cuda",
 ]
+ZS3_STEPS = 4
+ZS3_ARGS = [
+    "train-gmmn", "--dataset", "synthetic", "--backbone", "resnet101",
+    "--out-stride", "16", "--crop-size", "513", "--base-size", "513",
+    "--batch-size", "8", "--eval-batch-size", "4", "--compute-dtype", "bfloat16",
+    "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(ZS3_STEPS),
+    "--seed", "0", "--device", "cuda",
+]
+MMD_BUDGETS = (128, 512, 2048)
 
 
 def emit(**fields):
@@ -54,33 +77,90 @@ def check(cond: bool, phase: str, message: str):
         fail(phase, message)
 
 
-def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+def time_ms(fn, reps: int = 20, rounds: int = 5, what: str = "") -> float:
     """Device time of one fn() in ms: CUDA events around `reps` calls,
     median over `rounds`.  The calls queue behind a sleep kernel, so the
     device runs them back to back and the host's launch overhead stays
-    out of the time; the run fails if the host took longer to queue them
-    than the sleep lasted."""
+    out of the time; the sleep lasts at least 50 ms and four times what
+    the host took to queue one call, and the run fails if the host took
+    longer to queue them than the sleep lasted (a host sync in fn does)."""
     fn()  # warm-up: build, caches, allocator
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    cycles = max(SLEEP_CYCLES, int(SLEEP_CYCLES * 4 * reps * one_ms / 50))
     times = []
     for _ in range(rounds):
         sleep_start = torch.cuda.Event(enable_timing=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        sleep_start.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        end.record()
+        gc.collect()
+        gc.disable()  # a collection while queueing would outlast the sleep
+        try:
+            sleep_start.record()
+            torch.cuda._sleep(cycles)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            end.record()
+        finally:
+            gc.enable()
         end.synchronize()
         check(host_ms < sleep_start.elapsed_time(start), "timing",
-              f"queueing {reps} calls took {host_ms:.2f} ms, longer than the sleep")
+              f"{what}: queueing {reps} calls took {host_ms:.2f} ms, longer than the sleep")
         times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def rate_windows(fn, calls: int, windows: int = 5):
+    """fn() calls per second on the host clock, over `windows` windows of
+    `calls` calls each, every window ending in a synchronize: (the median
+    window's rate, every window's rate)."""
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        rates.append(calls / (time.perf_counter() - t0))
+    return sorted(rates)[windows // 2], rates
+
+
+def host_syncs(fn) -> int:
+    """How many times one fn() made the host wait for the device (calls
+    that torch's sync debug mode reports)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def host_ms(fn, calls: int = 21) -> float:
+    """The host's own time for one fn() in ms, median over `calls`: each
+    call starts after a synchronize, on an idle device, and is timed until
+    it returns, so it measures queueing the work while the device runs it
+    (fn must not synchronize: see host_syncs)."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return sorted(times)[calls // 2]
 
 
 def near_ties(logits: torch.Tensor, size) -> torch.Tensor:
@@ -222,6 +302,7 @@ def phase_slice():
     from zs3_tpu_torch.data.loader import make_val_loader
     from zs3_tpu_torch.metrics.evaluator import Evaluator
     from zs3_tpu_torch.ops import eval_kernels
+    from zs3_tpu_torch.ops import mmd_kernels as mk
     from zs3_tpu_torch.train.seen import build_eval_model, device_batch, make_eval_step
     from zs3_tpu_torch.utils.profiling import profile_device
 
@@ -230,6 +311,7 @@ def phase_slice():
 
     # The main path, through the entry point a user calls; counts from 0.
     eval_kernels.upsample_argmax.launches = 0
+    mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
@@ -241,8 +323,9 @@ def phase_slice():
     metrics = json.loads(out.getvalue().strip().splitlines()[-1])
     check(launches == len(loader), "slice",
           f"K1 launched {launches} times for {len(loader)} eval batches")
-    check(all(isinstance(v, float) and v == v and abs(v) != float("inf")
-              for v in metrics.values()), "slice", f"non-finite metrics {metrics}")
+    check(mk.kernel_sum.launches == mk.kernel_sum_grad.launches == 0, "slice",
+          "evaluate launched an MMD kernel")
+    check(all(is_finite(v) for v in metrics.values()), "slice", f"non-finite metrics {metrics}")
     check({"seen_miou", "unseen_miou", "harmonic_miou"} <= metrics.keys(), "slice",
           "seen/unseen/harmonic mIoU missing")
     emit(phase="slice", command="python -m zs3_tpu_torch.cli " + " ".join(SLICE_ARGS),
@@ -264,21 +347,21 @@ def phase_slice():
     check(all(abs(again[k] - metrics[k]) <= 1e-3 for k in metrics), "slice",
           f"second pass disagrees: {again} vs {metrics}")
 
-    # Eval images/s over device batches (host clock, ends in a synchronize).
+    # Eval images/s over device batches: 5 windows of 100 batches (host
+    # clock, each ending in a synchronize).  The step waits for the device
+    # (its confusion counts sync), so no host-only time is taken here.
     def one_pass():
         for batch in batches:
             step(model, batch)
 
-    passes = 3
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(passes):
-        one_pass()
-    torch.cuda.synchronize()
-    images = passes * sum(int(b["image"].shape[0]) for b in batches)
-    images_per_sec = images / (time.time() - t0)
-    emit(phase="slice", step="timed passes, batches already on the card", images=images,
+    per_pass = sum(int(b["image"].shape[0]) for b in batches)
+    passes_per_sec, window_rates = rate_windows(one_pass, calls=100 // len(batches))
+    images_per_sec = per_pass * passes_per_sec
+    emit(phase="slice", step="timed windows, batches already on the card",
+         images_per_window=per_pass * (100 // len(batches)),
          images_per_sec=images_per_sec,
+         images_per_sec_windows=[per_pass * r for r in window_rates],
+         host_syncs_per_batch=host_syncs(lambda: step(model, batches[0])),
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
     # Where the device time of that loop goes (torch.profiler, 2 passes).
@@ -287,11 +370,11 @@ def phase_slice():
     prof = profile_device(one_pass, steps=2)
     check(prof["device_busy_ms"] > 0, "profile", "the profiler saw no device time")
     k1_ms = sum(e["device_ms"] for e in prof["kernels"] if "upsample_argmax" in e["name"])
-    device_ms_per_image = prof["device_busy_ms"] / (2 * images // passes)
+    device_ms_per_image = prof["device_busy_ms"] / (2 * per_pass)
     prof["kernels"], prof["ops"] = prof["kernels"][:15], prof["ops"][:15]
-    emit(phase="profile", images=2 * images // passes, k1_device_ms=k1_ms,
+    emit(phase="profile", images=2 * per_pass, k1_device_ms=k1_ms,
          device_ms_per_image=device_ms_per_image,
-         idle_share_untraced=max(0.0, 1.0 - device_ms_per_image * images_per_sec / 1e3),
+         idle_share_untraced=1.0 - device_ms_per_image * images_per_sec / 1e3,
          **prof)
 
     # One batch with TF32 off: K1 against the plain version on the same logits.
@@ -339,6 +422,387 @@ def phase_reference():
     emit(phase="reference", pixels=valid, pixels_moved=moved, ok=True)
 
 
+def mmd_bounds(c, n, m, d, s):
+    """{"K2": (ms, by), "K3": (ms, by)}: the least time of one call of each
+    at these shapes.  K2 reads x, y and both weights and writes C sums; it
+    does the dot (2D), d2 (3), per sigma a scale, an exp and a sum (3S),
+    and the weights (6 in all with d2's clamp) for each of the N*M pairs.
+    K3 (dx only, as the step calls it) reads the same and writes dx; per
+    pair the dot (2D), d2 (3), per sigma scale, exp, two sums and a scale
+    (5S), the weighted C and K (3), and C.y plus the row sums (2D + 2)."""
+    pairs = c * n * m
+    k2 = (4 * c * (n * d + m * d + n + m + 1), pairs * (2 * d + 3 * s + 6))
+    k3 = (4 * c * (n * d + m * d + n + m + n * d), pairs * (4 * d + 5 * s + 8))
+    out = {}
+    for name, (bytes_moved, ops) in (("K2", k2), ("K3", k3)):
+        t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+        out[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def mmd_inputs(gen, c, n, m, d, empty=()):
+    """Post-ReLU-like features and 0/1 masks with ~30% empty slots; the
+    classes in `empty` have no real pixels."""
+    x = torch.relu(torch.randn((c, n, d), device="cuda", generator=gen))
+    y = torch.relu(torch.randn((c, m, d), device="cuda", generator=gen) + 0.2)
+    wx = (torch.rand((c, n), device="cuda", generator=gen) > 0.3).float()
+    wy = (torch.rand((c, m), device="cuda", generator=gen) > 0.3).float()
+    wy[list(empty)] = 0.0
+    return x, y, wx, wy
+
+
+def grad_term_magnitude(x, y, wx, wy, sigmas):
+    """sum_j |C_ij||y_j| + |rowsum(C)_i||x_i|: the size of the terms whose
+    sum is dx, against which its rounding is measured."""
+    from zs3_tpu_torch.ops.mmd import pairwise_sq_dists
+
+    d2 = pairwise_sq_dists(x, y)
+    c = sum(torch.exp(d2 * (-1.0 / (2.0 * s))) / s for s in sigmas)
+    cw = wx[..., :, None] * c * wy[..., None, :]
+    return cw.abs() @ y.abs() + cw.sum(-1, keepdim=True).abs() * x.abs()
+
+
+def check_k2_k3(x, y, wx, wy, what):
+    """K2 and K3 against their plain versions on the same inputs, and each
+    against a second call (same bits).  Sums to rtol 1e-4; dwx to rtol
+    1e-3 / atol 1e-6; dx to rtol 1e-3 / atol 1e-6 plus 1e-5 of the
+    magnitude of the terms it sums (dx = C.y - rowsum(C) x cancels, and
+    sums taken in another order round differently).  Returns the max
+    absolute errors."""
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+
+    got = mk.kernel_sum(x, y, wx, wy, sig)
+    want = mk.kernel_sum_reference(x, y, wx, wy, sig)
+    dx, dwx = mk.kernel_sum_grad(x, y, wx, wy, sig)
+    want_dx, want_dwx = mk.kernel_sum_grad_reference(x, y, wx, wy, sig)
+    dx_only, none = mk.kernel_sum_grad(x, y, wx, wy, sig, with_dwx=False)
+    torch.cuda.synchronize()
+    phase = "mmd kernels"
+    check(bool(((got - want).abs() <= 1e-4 * want.abs()).all()), phase,
+          f"{what}: K2 {got.tolist()[:4]} vs plain {want.tolist()[:4]}")
+    mag = grad_term_magnitude(x, y, wx, wy, sig)
+    err_dx = (dx - want_dx).abs()
+    plain_tol = 1e-6 + 1e-3 * want_dx.abs()
+    check(bool((err_dx <= plain_tol + 1e-5 * mag).all()), phase,
+          f"{what}: K3 dx off by {float(err_dx.max())}")
+    check(torch.allclose(dwx, want_dwx, rtol=1e-3, atol=1e-6), phase,
+          f"{what}: K3 dwx off by {float((dwx - want_dwx).abs().max())}")
+    check(none is None and torch.equal(dx_only, dx), phase, f"{what}: dx without dwx differs")
+    again = mk.kernel_sum(x, y, wx, wy, sig)
+    dx2, dwx2 = mk.kernel_sum_grad(x, y, wx, wy, sig)
+    check(torch.equal(again, got) and torch.equal(dx2, dx) and torch.equal(dwx2, dwx),
+          phase, f"{what}: a second call gave other bits")
+    return {
+        "k2_max_abs_err": float((got - want).abs().max()),
+        "k2_max_rel_err": float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()),
+        "k3_dx_max_abs_err": float(err_dx.max()),
+        "k3_dx_outside_plain_tol": int((err_dx > plain_tol).sum()),
+        "k3_dwx_max_abs_err": float((dwx - want_dwx).abs().max()),
+    }
+
+
+def phase_mmd():
+    """K2 and K3 on the card against their plain versions (f32, TF32
+    off), the batched loss and its gradient on KernelSum against the plain
+    oracle with autograd, and times at budgets 128, 512 and 2048."""
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+    from zs3_tpu_torch.ops.mmd import batched_mmd_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default: f32 products
+    cases = [
+        ("main path", (21, 128, 128, 256), (10, 14, 3)),
+        ("budget 512", (21, 512, 512, 256), (10, 14)),
+        ("budget 2048", (4, 2048, 2048, 256), ()),
+        ("ragged", (3, 50, 70, 16), ()),
+        ("ragged, D not a multiple of 4", (2, 33, 45, 30), ()),
+    ]
+    errors = {}
+    for what, (c, n, m, d), empty in cases:
+        x, y, wx, wy = mmd_inputs(gen, c, n, m, d, empty)
+        errors[what] = check_k2_k3(x, y, wx, wy, what)
+        emit(phase="mmd kernels", case=what, shape=[c, n, m, d], **errors[what])
+    x, y, wx, wy = mmd_inputs(gen, 2, 40, 40, 16)
+    zero = torch.zeros_like(wx)
+    s = mk.kernel_sum(x, y, zero, zero, sig)
+    dx, dwx = mk.kernel_sum_grad(x, y, zero, zero, sig)
+    torch.cuda.synchronize()
+    check(not s.any() and not dx.any() and not dwx.any(), "mmd kernels",
+          "all-zero weights must give exact zeros")
+    emit(phase="mmd kernels", case="all-zero weights", ok=True)
+    x, _, wx, _ = mmd_inputs(gen, 4, 96, 96, 64)
+    errors["x is y"] = check_k2_k3(x, x, wx, wx, "x is y")
+    emit(phase="mmd kernels", case="x is y (zero diagonal)", **errors["x is y"])
+
+    # The step's loss and its gradient with respect to the generated side.
+    fake, real, _, rmask = mmd_inputs(gen, 21, 128, 128, 256, (10, 14, 3))
+    fmask = torch.ones_like(rmask)
+    fmask[[10, 14]] = 0.0
+    rmask[[10, 14]] = 0.0
+    fake.requires_grad_(True)
+
+    def kernel_loss():
+        loss = mk.batched_kernel_mmd_loss(fake, real, fmask, rmask, sig)
+        return loss.detach(), torch.autograd.grad(loss, fake)[0]
+
+    def plain_loss():
+        loss = batched_mmd_loss(fake, real, fmask, rmask, sig)
+        return loss.detach(), torch.autograd.grad(loss, fake)[0]
+
+    (loss, grad), (loss2, grad2) = kernel_loss(), kernel_loss()
+    want_loss, want_grad = plain_loss()
+    torch.cuda.synchronize()
+    loss, want_loss = float(loss), float(want_loss)
+    check(abs(loss - want_loss) <= 1e-4 * abs(want_loss), "mmd kernels",
+          f"loss {loss} vs plain {want_loss}")
+    check(torch.allclose(grad, want_grad, rtol=1e-3, atol=1e-6), "mmd kernels",
+          f"loss gradient off by {float((grad - want_grad).abs().max())}")
+    check(loss == float(loss2) and torch.equal(grad, grad2), "mmd kernels",
+          "a second loss and gradient gave other bits")
+    emit(phase="mmd kernels", case="batched loss and gradient, main path",
+         loss=loss, plain_loss=want_loss,
+         grad_max_abs_err=float((grad - want_grad).abs().max()))
+
+    timings = {}
+    for budget in MMD_BUDGETS:
+        x, y, wx, wy = mmd_inputs(gen, 21, budget, budget, 256, (10, 14))
+        fake = x.clone().requires_grad_(True)
+        fm = torch.ones_like(wx)
+        bounds = mmd_bounds(21, budget, budget, 256, len(sig))
+        reps = 20 if budget <= 512 else 3
+        row = {"shape": [21, budget, budget, 256]}
+        for name, kernel, plain in (
+            ("K2", lambda: mk.kernel_sum(x, y, wx, wy, sig),
+             lambda: mk.kernel_sum_reference(x, y, wx, wy, sig)),
+            ("K3", lambda: mk.kernel_sum_grad(x, y, wx, wy, sig, with_dwx=False),
+             lambda: mk.kernel_sum_grad_reference(x, y, wx, wy, sig, with_dwx=False)),
+        ):
+            row[name] = {
+                "kernel_ms": time_ms(kernel, reps=reps, what=f"{name} {budget}"),
+                "plain_ms": time_ms(plain, reps=reps, what=f"{name} plain {budget}"),
+                "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": None,
+            }
+        # The whole loss, forward and backward, as the step runs it.
+        # One call per timing: a forward and backward launches some 100
+        # kernels, and a few calls fill the launch queue behind the sleep.
+        row["loss_fwd_bwd"] = {
+            "kernel_ms": time_ms(lambda: torch.autograd.grad(
+                mk.batched_kernel_mmd_loss(fake, y, fm, wy, sig), fake), reps=1, rounds=7,
+                what=f"loss {budget}"),
+            "plain_ms": time_ms(lambda: torch.autograd.grad(
+                batched_mmd_loss(fake, y, fm, wy, sig), fake), reps=1, rounds=7,
+                what=f"loss plain {budget}"),
+        }
+        timings[budget] = row
+        emit(phase="mmd kernels", budget=budget, **row)
+    return errors, timings
+
+
+MMD_KERNEL_NAMES = ("kernel_sum_blocks", "kernel_sum_classes", "kernel_sum_grad_x")
+
+
+def mmd_kernel_ms(prof) -> float:
+    """Device ms of K2's and K3's kernels in a profile_device summary."""
+    return sum(e["device_ms"] for e in prof["kernels"]
+               if any(k in e["name"] for k in MMD_KERNEL_NAMES))
+
+
+def is_finite(v) -> bool:
+    return isinstance(v, (int, float)) and v == v and abs(v) != float("inf")
+
+
+def _params(trainer):
+    return [p.detach().clone() for p in trainer.generator.parameters()] + [
+        v.detach().clone() for v in trainer.step.cls.values()
+    ]
+
+
+def phase_zs3():
+    """`cli train-gmmn` at full width; then, on the trainer it ran, check
+    its validation, time its step over device batches and split its
+    device time by stage."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.metrics.evaluator import Evaluator
+    from zs3_tpu_torch.ops import eval_kernels
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.train.seen import device_batch
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    phase = "zs3 slice"
+
+    # The main path, through the entry point a user calls (`cli.run` is
+    # `cli.main` without the print); counts from 0.
+    eval_kernels.upsample_argmax.launches = 0
+    mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
+    t0 = time.time()
+    result, trainer = cli.run(ZS3_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {
+        "K1": eval_kernels.upsample_argmax.launches,
+        "K2": mk.kernel_sum.launches,
+        "K3": mk.kernel_sum_grad.launches,
+    }
+    eval_batches = len(trainer.val_loader)
+    want = {"K1": eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS}
+    check(launches == want, phase,
+          f"launches {launches} for {ZS3_STEPS} steps and {eval_batches} eval batches")
+    check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
+          f"non-finite results {result}")
+    check(result["mmd"] > 0, phase, f"mmd {result['mmd']} is not positive")
+    check({"seen_miou", "unseen_miou", "harmonic_miou"} <= result.keys(), phase,
+          "seen/unseen/harmonic mIoU missing")
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(ZS3_ARGS),
+         result=result, launches=launches, steps=ZS3_STEPS,
+         eval_batches=eval_batches, wall_seconds_with_setup=wall)
+
+    # The validation once more on the same classifier: its confusion sums
+    # to the valid pixels and its metrics are the main path's.
+    evaluator = Evaluator(trainer.num_classes, 255, trainer.unseen)
+    valid = 0
+    for batch in trainer.val_loader:
+        batch = device_batch(batch, torch.device("cuda"))
+        evaluator.add_confusion(trainer.eval_fn(trainer.model, trainer.step.cls, batch))
+        valid += int((batch["label"] != 255).sum())
+    check(int(evaluator.confusion.sum()) == valid, phase,
+          f"confusion sums to {evaluator.confusion.sum()}, expected {valid}")
+    again = evaluator.compute().as_dict()
+    check(all(abs(again[k] - result[k]) <= 1e-3 for k in again), phase,
+          f"validation again disagrees: {again} vs {result}")
+    emit(phase=phase, check="validation again: counts add up, metrics agree",
+         pixels=valid, ok=True)
+
+    # Steps/s over device batches: 5 windows of 100 steps (host clock,
+    # each ending in a synchronize), the host's own ms per step, and the
+    # host syncs in one step (none, or host_ms would include device time).
+    host_batches = [b for _, b in zip(range(ZS3_STEPS), trainer.train_loader)]
+    batches = [device_batch(b, torch.device("cuda")) for b in host_batches]
+    turn = itertools.cycle(batches)
+
+    def one_step():
+        trainer.step(next(turn))
+
+    def one_pass():
+        for batch in batches:
+            trainer.step(batch)
+
+    before = _params(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_per_sec, window_rates = rate_windows(one_step, calls=100)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = [not torch.equal(a, b) for a, b in zip(before, _params(trainer))]
+    check(all(moved), phase, f"parameters that did not move: {moved}")
+    syncs = host_syncs(one_step)
+    host_ms_per_step = host_ms(one_step)
+    emit(phase=phase, step="timed windows, batches already on the card",
+         steps_per_window=100, steps_per_sec=steps_per_sec,
+         steps_per_sec_windows=window_rates,
+         images_per_sec=steps_per_sec * batches[0]["image"].shape[0],
+         host_ms_per_step=host_ms_per_step, host_syncs_per_step=syncs,
+         params_moved=True, peak_mem_gib=peak)
+
+    # Where the step's device time goes: the whole step under the
+    # profiler, then each stage alone on the first batch.
+    prof = profile_device(one_pass, steps=2)
+    check(prof["device_busy_ms"] > 0, "zs3 profile", "the profiler saw no device time")
+    step_ms = prof["device_busy_ms"] / (2 * len(batches))
+    mmd_ms = mmd_kernel_ms(prof)
+    step = trainer.step
+    feats, labels = step.features(batches[0])
+    u, noise1, noise2 = step.draw(labels.shape[0])
+    real, real_mask = step.sample(feats, labels, u)
+    stages = {
+        "trunk": lambda: step.features(batches[0]),
+        "draws": lambda: step.draw(labels.shape[0]),
+        "sampling": lambda: step.sample(feats, labels, u),
+        "generator_update": lambda: step.generator_update(real, real_mask, noise1),
+        "classifier_update": lambda: step.classifier_update(real, real_mask, noise2),
+    }
+    split = {}
+    for name, fn in stages.items():
+        p = profile_device(fn, steps=4)
+        split[name] = p["device_busy_ms"] / 4
+        if name == "generator_update":
+            split["of_which_k2_k3"] = mmd_kernel_ms(p) / 4
+    prof["kernels"], prof["ops"] = prof["kernels"][:15], prof["ops"][:15]
+    emit(phase="zs3 profile", steps_per_pass=len(batches), device_ms_per_step=step_ms,
+         k2_k3_device_ms_per_step=mmd_ms / (2 * len(batches)),
+         host_ms_per_step=host_ms_per_step, stage_device_ms=split,
+         idle_share_untraced=1.0 - step_ms * steps_per_sec / 1e3, **prof)
+    return launches
+
+
+def phase_zs3_reference():
+    """One ZS3 step on the card against the same step on the CPU: same
+    weights, batch and draws; ResNet-50 at 65x65, f32, TF32 off.  mmd and
+    cls_ce to rtol 1e-4, gradients to rtol 1e-3 with an atol of 1e-4 of
+    the tensor's largest entry, updated params to 1e-6 where
+    |g| > 1e-3 max|g| (Adam's first step is +-lr, whatever |g|)."""
+    import copy
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data.loader import make_train_loader
+    from zs3_tpu_torch.data.synthetic import synthetic_class_embeddings
+    from zs3_tpu_torch.models.gmmn import build_gmmn, init_gmmn
+    from zs3_tpu_torch.train.gmmn import ZS3Step, extract_classifier
+    from zs3_tpu_torch.train.seen import build_eval_model, device_batch
+
+    phase = "zs3 reference"
+    args = ["train-gmmn", "--dataset", "synthetic", "--backbone", "resnet50",
+            "--crop-size", "65", "--base-size", "65", "--batch-size", "8",
+            "--compute-dtype", "float32", "--unseen-split", "2"]
+    cfg = cli.build_config(cli.make_parser().parse_args(args))
+    loader, n = make_train_loader(cfg.data)
+    batch = next(iter(loader))
+    unseen = torch.zeros(n)
+    unseen[list(cfg.data.unseen_classes)] = 1.0
+    emb = torch.from_numpy(synthetic_class_embeddings(n, cfg.gmmn.embed_dim))
+    generator = init_gmmn(build_gmmn(cfg.gmmn), 1)
+
+    def make_step(dev):
+        model = build_eval_model(cfg, dev)
+        return ZS3Step(model, copy.deepcopy(generator).to(dev), extract_classifier(model),
+                       emb.to(dev), unseen.to(dev), cfg, seed=0)
+
+    cpu_step, gpu_step = make_step("cpu"), make_step("cuda")
+    cpu_batch = device_batch(batch, torch.device("cpu"))
+    gpu_batch = device_batch(batch, torch.device("cuda"))
+    _, labels = cpu_step.features(cpu_batch)
+    draws = cpu_step.draw(labels.shape[0])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = cpu_step.body(cpu_batch, draws)
+        got = gpu_step.body(gpu_batch, tuple(d.cuda() for d in draws))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    for key in ("mmd", "cls_ce"):
+        a, b = float(got[key]), float(want[key])
+        check(abs(a - b) <= 1e-4 * abs(b), phase, f"{key}: card {a} vs CPU {b}")
+
+    def tensors(step):
+        return list(step.generator.named_parameters()) + list(step.cls.items())
+
+    worst = {}
+    for (name, p), (_, q) in zip(tensors(gpu_step), tensors(cpu_step)):
+        g, want_g = p.grad.cpu(), q.grad
+        scale = float(want_g.abs().max())
+        check(torch.allclose(g, want_g, rtol=1e-3, atol=1e-4 * scale), phase,
+              f"{name}: gradient off by {float((g - want_g).abs().max())} (max |g| {scale})")
+        big = want_g.abs() > 1e-3 * scale
+        err = float((p.detach().cpu() - q.detach())[big].abs().max())
+        check(err <= 1e-6, phase, f"{name}: updated params off by {err}")
+        worst[name] = float((g - want_g).abs().max()) / scale
+    emit(phase=phase, mmd=float(got["mmd"]), cpu_mmd=float(want["mmd"]),
+         cls_ce=float(got["cls_ce"]), cpu_cls_ce=float(want["cls_ce"]),
+         grad_max_err_over_max_grad=worst, ok=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -350,16 +814,40 @@ def main() -> int:
     phase_env()
     phase_build()
     timings = phase_kernels()
+    mmd_errors, mmd_timings = phase_mmd()
     phase_dilated()
     launches = phase_slice()
+    zs3_launches = phase_zs3()
     phase_reference()
+    phase_zs3_reference()
     b4, b16 = timings[4], timings[16]
+    main_err, main_t = mmd_errors["main path"], mmd_timings[128]
+
+    def mmd_row(name, key, source_line, err):
+        t = main_t[key]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "zs3_tpu_torch/csrc/mmd_kernel_sum.cu",
+            "replaces": f"zs3_tpu/ops/pallas_mmd.py:{source_line}",
+            "launches": zs3_launches[key],
+            "max_abs_err": err,
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": main_t["shape"],
+            "budgets": {b: mmd_timings[b][key] for b in MMD_BUDGETS},
+        }
+
     print(json.dumps({"kernels": [{
         "name": "upsample_argmax",
         "route": "cuda",
         "source": "zs3_tpu_torch/csrc/upsample_argmax.cu",
         "replaces": "zs3_tpu/ops/pallas_eval.py:30",
         "launches": launches,
+        "launches_train_gmmn": zs3_launches["K1"],
         "max_abs_err": b4["max_abs_err"],
         "ms": b4["kernel_ms"],
         "plain_ms": b4["plain_ms"],
@@ -368,7 +856,10 @@ def main() -> int:
         "library_ms": b4["library_ms"],
         "shape": b4["shape"],
         "b16": {k: b16[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
-    }]}), flush=True)
+    },
+        mmd_row("mmd_kernel_sum", "K2", 54, main_err["k2_max_abs_err"]),
+        mmd_row("mmd_kernel_sum_grad", "K3", 79, main_err["k3_dx_max_abs_err"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

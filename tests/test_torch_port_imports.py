@@ -44,8 +44,9 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
         capture_output=True, text=True, timeout=120, check=True,
     )
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "zs3_tpu_torch.train.seen" in result["modules"]
-    assert "zs3_tpu_torch.cli" in result["modules"]
+    for name in ("train.seen", "train.gmmn", "ops.mmd", "ops.mmd_kernels", "ops.sampling",
+                 "models.gmmn", "data.embeddings", "cli"):
+        assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 
 

@@ -1,6 +1,7 @@
 """Command line of the port (the ported subcommands of zs3_tpu.cli).
 
     python -m zs3_tpu_torch.cli evaluate --dataset synthetic --unseen-split 2
+    python -m zs3_tpu_torch.cli train-gmmn --dataset synthetic --unseen-split 2
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
@@ -13,7 +14,7 @@ import argparse
 import dataclasses
 import json
 import sys
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 from zs3_tpu_torch.core.config import Config, context_unseen_split, voc_unseen_split
 
@@ -39,6 +40,19 @@ def _add_common(p: argparse.ArgumentParser):
                         "PyTorch path)")
 
 
+def _add_train_gmmn(p: argparse.ArgumentParser):
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--steps-per-epoch", type=int)
+    p.add_argument("--eval-interval", type=int)
+    p.add_argument("--no-val", action="store_true", default=None,
+                   help="never validate")
+    p.add_argument("--pixels-per-class", type=int,
+                   help="per-class pixel budget of the generator step")
+    p.add_argument("--embedding-path", type=str,
+                   help="class embeddings (.npy/.pkl/.npz); default: the "
+                        "synthetic classes' own")
+
+
 def build_config(args: argparse.Namespace) -> Config:
     cfg = Config()
     if args.config:
@@ -48,6 +62,12 @@ def build_config(args: argparse.Namespace) -> Config:
     def upd(node, **kw):
         kw = {k: v for k, v in kw.items() if v is not None}
         return dataclasses.replace(node, **kw) if kw else node
+
+    def flag(name):  # a flag that only some subcommands take
+        return getattr(args, name, None)
+
+    # --no-val: an effectively infinite eval interval, as in zs3_tpu.
+    eval_interval = 10**9 if flag("no_val") else flag("eval_interval")
 
     unseen: Optional[tuple] = None
     if args.unseen_split is not None:
@@ -68,6 +88,7 @@ def build_config(args: argparse.Namespace) -> Config:
             output_stride=args.out_stride,
             compute_dtype=args.compute_dtype,
         ),
+        gmmn=upd(cfg.gmmn, pixels_per_class=flag("pixels_per_class")),
         data=upd(
             cfg.data,
             dataset=args.dataset,
@@ -76,8 +97,16 @@ def build_config(args: argparse.Namespace) -> Config:
             batch_size=args.batch_size,
             eval_batch_size=args.eval_batch_size,
             unseen_classes=unseen,
+            embedding_path=flag("embedding_path"),
         ),
-        train=upd(cfg.train, seed=args.seed, resume=args.resume),
+        train=upd(
+            cfg.train,
+            seed=args.seed,
+            resume=args.resume,
+            epochs=flag("epochs"),
+            steps_per_epoch=flag("steps_per_epoch"),
+            eval_interval=eval_interval,
+        ),
     )
 
 
@@ -88,19 +117,32 @@ def make_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_common(sub.add_parser("evaluate"))
+    gmmn = sub.add_parser("train-gmmn")
+    _add_common(gmmn)
+    _add_train_gmmn(gmmn)
     return parser
 
 
-def main(argv=None) -> int:
+def run(argv=None) -> Tuple[Dict[str, float], Optional[Any]]:
+    """Run one command without printing: (its result, the GMMNTrainer that
+    `train-gmmn` ran, or None for `evaluate`)."""
     args = make_parser().parse_args(argv)
     cfg = build_config(args)
 
     if args.command == "evaluate":
         from zs3_tpu_torch.train.seen import evaluate
 
-        result = evaluate(cfg, device=args.device)
-    else:  # pragma: no cover
-        raise AssertionError(args.command)
+        return evaluate(cfg, device=args.device), None
+    if args.command == "train-gmmn":
+        from zs3_tpu_torch.train.gmmn import GMMNTrainer
+
+        trainer = GMMNTrainer(cfg, device=args.device)
+        return trainer.fit(), trainer
+    raise AssertionError(args.command)  # pragma: no cover
+
+
+def main(argv=None) -> int:
+    result, _ = run(argv)
     print(json.dumps(result))
     return 0
 

@@ -56,9 +56,9 @@ class GMMNConfig:
     mmd_sigmas: Tuple[float, ...] = (2.0, 5.0, 10.0, 20.0, 40.0, 80.0)
     # Fixed per-class pixel budget for jit-safe ragged sampling.
     pixels_per_class: int = 128
-    # MMD backend: 'jnp' (XLA-fused oracle), 'pallas' (tiled kernel), or
-    # 'auto' (pallas on TPU when the per-class budget is large enough to
-    # beat XLA's fusion, i.e. >= 512 pixels/class).
+    # MMD backend, zs3_tpu's names: 'auto' and 'pallas' run the port's
+    # kernels K2/K3 on the GPU at every budget (their plain versions on the
+    # CPU); 'jnp' (zs3_tpu's XLA oracle) is refused on the GPU.
     mmd_backend: str = "auto"
     # Graph-context variant: aggregate neighbor class embeddings.
     graph_context: bool = False

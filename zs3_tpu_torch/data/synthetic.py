@@ -1,8 +1,7 @@
 """Synthetic segmentation dataset for tests, smoke runs, and benches.
 
-A copy of zs3_tpu.data.synthetic (with the fallback embedding it uses
-from zs3_tpu.data.embeddings), so the port's synthetic images and labels
-are the JAX package's, pixel for pixel.
+A copy of zs3_tpu.data.synthetic, so the port's synthetic images and
+labels are the JAX package's, pixel for pixel.
 
 No dataset ships with this image (no network), so every pipeline must be
 exercisable without VOC on disk.  This generates deterministic
@@ -22,18 +21,11 @@ SURVEY.md §6) without VOC on disk.
 
 from __future__ import annotations
 
-import hashlib
 from typing import Sequence, Tuple
 
 import numpy as np
 
-
-def _fallback_embedding(name: str, dim: int) -> np.ndarray:
-    """Deterministic unit vector per class name (zs3_tpu.data.embeddings)."""
-    seed = int.from_bytes(hashlib.sha256(name.encode()).digest()[:8], "little")
-    rng = np.random.default_rng(seed)
-    v = rng.standard_normal(dim).astype(np.float32)
-    return v / np.linalg.norm(v)
+from zs3_tpu_torch.data.embeddings import _fallback_embedding
 
 
 def synthetic_class_embeddings(num_classes: int, dim: int = 32) -> np.ndarray:

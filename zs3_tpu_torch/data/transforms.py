@@ -1,8 +1,11 @@
-"""Per-sample eval preprocessing (the eval side of zs3_tpu.data.transforms).
+"""Per-sample preprocessing (a copy of zs3_tpu.data.transforms' host side).
 
-The reference's val composition: FixScaleCrop -> Normalize (ImageNet
-mean/std), on {'image', 'label'} sample dicts of numpy arrays, with PIL
-doing the resampling exactly as zs3_tpu does.
+The reference's compositions on {'image', 'label'} sample dicts of numpy
+arrays, with PIL doing the resampling exactly as zs3_tpu does: train is
+HFlip -> RandomScaleCrop -> GaussianBlur -> Normalize, val is
+FixScaleCrop -> Normalize (ImageNet mean/std).  Random transforms take an
+explicit np.random.Generator, so a sample's augmentation is a function of
+its seed, as in zs3_tpu.
 """
 
 from __future__ import annotations
@@ -10,7 +13,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageFilter
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -29,6 +32,58 @@ def _from_pil(img: Image.Image, lbl: Image.Image) -> Sample:
         "image": np.asarray(img, dtype=np.uint8),
         "label": np.asarray(lbl, dtype=np.uint8),
     }
+
+
+def random_horizontal_flip(sample: Sample, rng: np.random.Generator) -> Sample:
+    if rng.random() < 0.5:
+        return {
+            "image": np.ascontiguousarray(sample["image"][:, ::-1]),
+            "label": np.ascontiguousarray(sample["label"][:, ::-1]),
+        }
+    return sample
+
+
+def random_gaussian_blur(sample: Sample, rng: np.random.Generator) -> Sample:
+    if rng.random() < 0.5:
+        img, lbl = _to_pil(sample["image"], sample["label"])
+        img = img.filter(ImageFilter.GaussianBlur(radius=rng.random()))
+        return _from_pil(img, lbl)
+    return sample
+
+
+def random_scale_crop(
+    sample: Sample,
+    rng: np.random.Generator,
+    base_size: int = 513,
+    crop_size: int = 513,
+    fill: int = 255,
+) -> Sample:
+    """Random scale in [0.5, 2.0]x base_size short side, pad, random crop."""
+    img, lbl = _to_pil(sample["image"], sample["label"])
+    short_size = int(rng.integers(int(base_size * 0.5), int(base_size * 2.0) + 1))
+    w, h = img.size
+    if h > w:
+        ow = short_size
+        oh = int(1.0 * h * ow / w)
+    else:
+        oh = short_size
+        ow = int(1.0 * w * oh / h)
+    img = img.resize((ow, oh), Image.BILINEAR)
+    lbl = lbl.resize((ow, oh), Image.NEAREST)
+    if short_size < crop_size:
+        padh = max(crop_size - oh, 0)
+        padw = max(crop_size - ow, 0)
+        img_np = np.asarray(img)
+        lbl_np = np.asarray(lbl)
+        img_np = np.pad(img_np, ((0, padh), (0, padw), (0, 0)), constant_values=0)
+        lbl_np = np.pad(lbl_np, ((0, padh), (0, padw)), constant_values=fill)
+        img, lbl = _to_pil(img_np, lbl_np)
+    w, h = img.size
+    x1 = int(rng.integers(0, max(w - crop_size, 0) + 1))
+    y1 = int(rng.integers(0, max(h - crop_size, 0) + 1))
+    img = img.crop((x1, y1, x1 + crop_size, y1 + crop_size))
+    lbl = lbl.crop((x1, y1, x1 + crop_size, y1 + crop_size))
+    return _from_pil(img, lbl)
 
 
 def fix_scale_crop(sample: Sample, crop_size: int = 513) -> Sample:
@@ -61,3 +116,18 @@ def normalize(sample: Sample) -> Dict[str, np.ndarray]:
 def eval_transform(sample: Sample, crop_size: int = 513) -> Dict[str, np.ndarray]:
     """The reference val-time composition: FixScaleCrop -> Normalize."""
     return normalize(fix_scale_crop(sample, crop_size))
+
+
+def train_transform(
+    sample: Sample,
+    rng: np.random.Generator,
+    base_size: int = 513,
+    crop_size: int = 513,
+    fill: int = 255,
+) -> Dict[str, np.ndarray]:
+    """The reference train-time composition (pascal.py transform_tr):
+    HFlip -> RandomScaleCrop -> GaussianBlur -> Normalize."""
+    sample = random_horizontal_flip(sample, rng)
+    sample = random_scale_crop(sample, rng, base_size, crop_size, fill)
+    sample = random_gaussian_blur(sample, rng)
+    return normalize(sample)

@@ -1,0 +1,273 @@
+"""Kernel sums for the MMD loss (port of zs3_tpu.ops.pallas_mmd).
+
+The generator's MMD needs three weighted Gaussian kernel sums per class
+(fake-fake, real-real, fake-real).  The plain version materialises the
+(N, M) distance and kernel matrices; the CUDA kernels in
+csrc/mmd_kernel_sum.cu never do: K2 computes the sums, K3 the gradient
+with respect to one side.  `KernelSum` is the autograd.Function over a
+batch of classes whose forward is K2 and whose backward launches K3 once
+for each side that needs a gradient (with the arguments swapped for y),
+as zs3_tpu's custom VJP does, and once in all when both sides are the
+same tensor.  On a CPU tensor it runs the plain
+versions; on a CUDA tensor it launches the kernels or raises.
+
+`kernel_mmd_loss` and `batched_kernel_mmd_loss` assemble the sqrt-MMD
+with the oracle's own `assemble_sqrt_mmd` and `mean_over_present_classes`
+(zs3_tpu_torch.ops.mmd), so only the kernel-sum backend differs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from zs3_tpu_torch.ops.cuda_build import CudaLibrary
+from zs3_tpu_torch.ops.mmd import (
+    DEFAULT_SIGMAS,
+    _kernel_sum,
+    assemble_sqrt_mmd,
+    mean_over_present_classes,
+    pairwise_sq_dists,
+    resolve_weights,
+)
+
+MAX_FEATURES = 512
+MAX_SIGMAS = 8
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_KERNEL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
+_LIB = CudaLibrary(
+    "mmd_kernel_sum",
+    {
+        "zs3_mmd_partials": ([_I, _I], ctypes.c_int),
+        "zs3_mmd_kernel_sum": (_KERNEL_ARGS, ctypes.c_int),
+        "zs3_mmd_kernel_sum_grad": (_KERNEL_ARGS, ctypes.c_int),
+        "zs3_mmd_error_string": ([_I], ctypes.c_char_p),
+    },
+)
+
+
+def _check(x, y, wx, wy, name: str) -> Tuple[int, int, int, int]:
+    """(C, N, M, D) after checking what the kernels take."""
+    for t in (x, y, wx, wy):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} needs float32 tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+    if x.ndim != 3 or y.ndim != 3 or wx.ndim != 2 or wy.ndim != 2:
+        raise ValueError(
+            f"{name} needs x (C,N,D), y (C,M,D), wx (C,N), wy (C,M); got "
+            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(wx.shape)}, {tuple(wy.shape)}"
+        )
+    c, n, d = x.shape
+    m = y.shape[1]
+    if y.shape[0] != c or y.shape[2] != d or tuple(wx.shape) != (c, n) or tuple(wy.shape) != (c, m):
+        raise ValueError(
+            f"{name}: mismatched shapes {tuple(x.shape)}, {tuple(y.shape)}, "
+            f"{tuple(wx.shape)}, {tuple(wy.shape)}"
+        )
+    if not 1 <= d <= MAX_FEATURES:
+        raise ValueError(f"{name} takes 1..{MAX_FEATURES} features, got {d}")
+    if min(c, n, m) < 1 or c >= 2**16 or c * max(n, m) * d >= 2**31:
+        raise ValueError(f"{name}: bad sizes C={c} N={n} M={m} D={d}")
+    if len({x.device, y.device, wx.device, wy.device}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    return c, n, m, d
+
+
+def _sigma_array(sigmas: Sequence[float]):
+    if not 1 <= len(sigmas) <= MAX_SIGMAS:
+        raise ValueError(f"1..{MAX_SIGMAS} sigmas, got {len(sigmas)}")
+    return (ctypes.c_float * len(sigmas))(*(float(s) for s in sigmas))
+
+
+def _raise_on(lib, rc: int, name: str):
+    if rc != 0:
+        msg = lib.zs3_mmd_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
+def kernel_sum(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    wx: torch.Tensor,
+    wy: torch.Tensor,
+    sigmas: Sequence[float] = DEFAULT_SIGMAS,
+) -> torch.Tensor:
+    """K2: (C,) sums_ij wx_i wy_j sum_s exp(-d2_ij / (2 sigma_s)) per class,
+    for x (C,N,D), y (C,M,D), wx (C,N), wy (C,M) f32 CUDA tensors.
+
+    Launches on the current stream (two kernels: block partials, then a
+    per-class sum in a fixed order, so repeated calls agree bit for bit);
+    `kernel_sum.launches` counts the calls."""
+    c, n, m, d = _check(x, y, wx, wy, "kernel_sum")
+    sig = _sigma_array(sigmas)
+    lib = _LIB.get()
+    partials = torch.empty(lib.zs3_mmd_partials(c, n), dtype=torch.float32, device=x.device)
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.zs3_mmd_kernel_sum(
+            x.data_ptr(), y.data_ptr(), wx.data_ptr(), wy.data_ptr(), c, n, m, d,
+            sig, len(sigmas), partials.data_ptr(), out.data_ptr(), stream,
+        )
+    _raise_on(lib, rc, "kernel_sum")
+    kernel_sum.launches += 1
+    return out
+
+
+kernel_sum.launches = 0
+
+
+def kernel_sum_grad(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    wx: torch.Tensor,
+    wy: torch.Tensor,
+    sigmas: Sequence[float] = DEFAULT_SIGMAS,
+    with_dwx: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K3: the gradient of `kernel_sum` with respect to x and wx, per class:
+    dx (C,N,D) = C.y - rowsum(C) x with C_ij = wx_i wy_j sum_s e_s/sigma_s,
+    dwx (C,N) = sum_j wy_j K_ij (None unless with_dwx).
+
+    Launches on the current stream; `kernel_sum_grad.launches` counts the
+    calls."""
+    c, n, m, d = _check(x, y, wx, wy, "kernel_sum_grad")
+    sig = _sigma_array(sigmas)
+    lib = _LIB.get()
+    dx = torch.empty((c, n, d), dtype=torch.float32, device=x.device)
+    dwx = torch.empty((c, n), dtype=torch.float32, device=x.device) if with_dwx else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.zs3_mmd_kernel_sum_grad(
+            x.data_ptr(), y.data_ptr(), wx.data_ptr(), wy.data_ptr(), c, n, m, d,
+            sig, len(sigmas), dx.data_ptr(), None if dwx is None else dwx.data_ptr(),
+            stream,
+        )
+    _raise_on(lib, rc, "kernel_sum_grad")
+    kernel_sum_grad.launches += 1
+    return dx, dwx
+
+
+kernel_sum_grad.launches = 0
+
+
+def kernel_sum_reference(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    wx: torch.Tensor,
+    wy: torch.Tensor,
+    sigmas: Sequence[float] = DEFAULT_SIGMAS,
+) -> torch.Tensor:
+    """Plain version of K2 (the oracle's `_kernel_sum` over classes)."""
+    return _kernel_sum(x.float(), y.float(), wx.float(), wy.float(), sigmas)
+
+
+def kernel_sum_grad_reference(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    wx: torch.Tensor,
+    wy: torch.Tensor,
+    sigmas: Sequence[float] = DEFAULT_SIGMAS,
+    with_dwx: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of K3, in the TPU kernel's arithmetic."""
+    x, y, wx, wy = x.float(), y.float(), wx.float(), wy.float()
+    d2 = pairwise_sq_dists(x, y)
+    k = torch.zeros_like(d2)
+    c = torch.zeros_like(d2)
+    for s in sigmas:
+        e = torch.exp(d2 * (-1.0 / (2.0 * float(s))))
+        k = k + e
+        c = c + e * (1.0 / float(s))
+    cw = (wx[..., :, None] * c) * wy[..., None, :]
+    dx = cw @ y - cw.sum(-1, keepdim=True) * x
+    dwx = (k * wy[..., None, :]).sum(-1) if with_dwx else None
+    return dx, dwx
+
+
+class KernelSum(torch.autograd.Function):
+    """(C,) weighted kernel sums with a kernel for the backward too:
+    forward K2, backward K3 once for each side that needs a gradient.
+    When x is y and wx is wy (the fake-fake sum) the kernel is symmetric
+    and both sides' gradients are the same, so K3 runs once and counts
+    twice.  CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, y, wx, wy, sigmas):
+        ctx.sigmas = tuple(float(s) for s in sigmas)
+        ctx.same = x is y and wx is wy
+        x, y, wx, wy = (t.float().contiguous() for t in (x, y, wx, wy))
+        ctx.save_for_backward(x, y, wx, wy)
+        if x.device.type == "cpu":
+            return kernel_sum_reference(x, y, wx, wy, ctx.sigmas)
+        return kernel_sum(x, y, wx, wy, ctx.sigmas)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, wx, wy = ctx.saved_tensors
+        grad = kernel_sum_grad_reference if x.device.type == "cpu" else kernel_sum_grad
+        need_x, need_y, need_wx, need_wy = ctx.needs_input_grad[:4]
+        dx = dy = dwx = dwy = None
+        if ctx.same:
+            # x and y are one input: its gradient is both slots' sum.
+            gx, gwx = grad(x, y, wx, wy, ctx.sigmas, with_dwx=need_wx)
+            dx = (2.0 * g)[:, None, None] * gx if need_x else None
+            dwx = (2.0 * g)[:, None] * gwx if need_wx else None
+            return dx, None, dwx, None, None
+        if need_x or need_wx:
+            gx, gwx = grad(x, y, wx, wy, ctx.sigmas, with_dwx=need_wx)
+            dx = g[:, None, None] * gx if need_x else None
+            dwx = g[:, None] * gwx if need_wx else None
+        if need_y or need_wy:
+            gy, gwy = grad(y, x, wy, wx, ctx.sigmas, with_dwx=need_wy)
+            dy = g[:, None, None] * gy if need_y else None
+            dwy = g[:, None] * gwy if need_wy else None
+        return dx, dy, dwx, dwy, None
+
+
+def _sqrt_mmd(fake, real, wf, wr, sigmas) -> torch.Tensor:
+    """(C,) sqrt-MMD from three `KernelSum`s over (C, N, D) vs (C, M, D)."""
+    sig = tuple(float(s) for s in sigmas)
+    k_ff = KernelSum.apply(fake, fake, wf, wf, sig)
+    k_rr = KernelSum.apply(real, real, wr, wr, sig)
+    k_fr = KernelSum.apply(fake, real, wf, wr, sig)
+    return assemble_sqrt_mmd(k_ff, k_rr, k_fr, wf.sum(-1), wr.sum(-1))
+
+
+def batched_kernel_mmd_loss(
+    fake: torch.Tensor,
+    real: torch.Tensor,
+    fake_mask: torch.Tensor,
+    real_mask: torch.Tensor,
+    sigmas: Sequence[float] = DEFAULT_SIGMAS,
+) -> torch.Tensor:
+    """Mean sqrt-MMD over a leading class axis, (C, N, D) vs (C, M, D),
+    on `KernelSum`: three K2 launches, and in the backward with respect
+    to fake two K3 launches (fake-fake, fake-real)."""
+    wf, wr = resolve_weights(fake, real, fake_mask, real_mask)
+    per_class = _sqrt_mmd(fake, real, wf, wr, sigmas)
+    return mean_over_present_classes(per_class, fake_mask, real_mask)
+
+
+def kernel_mmd_loss(
+    fake: torch.Tensor,
+    real: torch.Tensor,
+    fake_mask: Optional[torch.Tensor] = None,
+    real_mask: Optional[torch.Tensor] = None,
+    sigmas: Sequence[float] = DEFAULT_SIGMAS,
+) -> torch.Tensor:
+    """Drop-in for ops.mmd.mmd_loss, fake (N, D) vs real (M, D), on
+    `KernelSum` (a batch of one class)."""
+    if fake.ndim != 2 or real.ndim != 2 or fake.shape[1] != real.shape[1]:
+        raise ValueError(
+            f"kernel_mmd_loss expects (N, D) and (M, D) with equal D; got "
+            f"{tuple(fake.shape)} vs {tuple(real.shape)}"
+        )
+    wf, wr = resolve_weights(fake, real, fake_mask, real_mask)
+    return _sqrt_mmd(fake[None], real[None], wf[None], wr[None], sigmas)[0]

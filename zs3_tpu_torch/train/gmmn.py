@@ -1,0 +1,348 @@
+"""ZS3Net zero-shot training: the GMMN generator step and classifier
+retraining (port of zs3_tpu.train.gmmn).
+
+Per batch, with the seen-class trunk frozen (SURVEY.md §3.3):
+
+  1. extract real 256-d pixel features at the os4 grid, labels
+     downsampled to that grid, and sample up to `pixels_per_class`
+     pixels of every class;
+  2. generator step: MMD between generated features (class embedding +
+     noise) and each seen class's real features; Adam on the generator;
+  3. classifier step: generated unseen-class features next to real seen
+     ones retrain the split 1x1 classifier with CE; Adam on it.
+
+The MMD runs on `KernelSum` (kernels K2/K3, ops/mmd_kernels.py) on the
+GPU, and on their plain versions on the CPU.  Validation
+splices the retrained classifier into the trunk and reports
+seen/unseen/harmonic mIoU through the eval step (kernel K1).
+Checkpoint writes, `gmmn_resume` and the metric logger come with the
+saver slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from zs3_tpu_torch.core.config import Config
+from zs3_tpu_torch.core.device import resolve_device
+from zs3_tpu_torch.data.loader import make_data_loader
+from zs3_tpu_torch.metrics.evaluator import Evaluator
+from zs3_tpu_torch.models.deeplab import DeepLab
+from zs3_tpu_torch.models.gmmn import GMMNGenerator, build_gmmn, init_gmmn
+from zs3_tpu_torch.ops.mmd_kernels import batched_kernel_mmd_loss
+from zs3_tpu_torch.ops.sampling import downsample_labels, draw_scores, sample_class_pixels
+from zs3_tpu_torch.train.seen import build_eval_model, device_batch, make_eval_step
+
+Params = Dict[str, torch.Tensor]
+Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def extract_classifier(model: DeepLab) -> Params:
+    """The trunk's 1x1 classifier as {"kernel": (D, C), "bias": (C,)},
+    zs3_tpu's layout (the conv weight (C, D, 1, 1) transposed)."""
+    conv = model.classifier
+    return {
+        "kernel": conv.weight.detach()[:, :, 0, 0].t().contiguous(),
+        "bias": conv.bias.detach().clone(),
+    }
+
+
+@torch.no_grad()
+def splice_classifier(model: DeepLab, cls_params: Params) -> DeepLab:
+    """Write a (D, C) classifier back into the model's 1x1 conv, in place."""
+    model.classifier.weight.copy_(cls_params["kernel"].t()[:, :, None, None])
+    model.classifier.bias.copy_(cls_params["bias"])
+    return model
+
+
+def mmd_training_masks(
+    real_mask: torch.Tensor, seen_mask_f: torch.Tensor, self_training: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(fake_mask, real_mask) the generator's MMD trains against.
+
+    ZS3: only seen classes have real features, so both sides are
+    restricted to them.  ZS5 (self_training): pseudo-labelled unseen
+    pixels are targets too, and the generator trains on every class."""
+    if self_training:
+        return torch.ones_like(real_mask), real_mask
+    num_classes, budget = real_mask.shape
+    fake_mask = seen_mask_f[:, None].expand(num_classes, budget)
+    return fake_mask, real_mask * seen_mask_f[:, None]
+
+
+def classifier_training_set(
+    real: torch.Tensor,
+    real_mask: torch.Tensor,
+    fake: torch.Tensor,
+    unseen_mask: torch.Tensor,
+    self_training: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(features (C, P, D), mask (C, P)) the classifier CE retrains on.
+
+    ZS3: unseen rows are all generated, seen rows real under their sample
+    mask.  ZS5 (self_training): real features at pseudo-labelled unseen
+    pixels win and generated ones fill only the empty unseen slots."""
+    unseen_row = unseen_mask[:, None] > 0
+    if self_training:
+        use_fake = unseen_row[..., None] & (real_mask[..., None] <= 0)
+    else:
+        use_fake = unseen_row[..., None]
+    feats = torch.where(use_fake, fake, real)
+    mask = torch.where(unseen_row, torch.ones_like(real_mask), real_mask)
+    return feats, mask
+
+
+def select_mmd(backend: str, device: Union[str, torch.device]):
+    """The batched MMD for `mmd_backend` on `device`.
+
+    The port has one: `batched_kernel_mmd_loss` on KernelSum, which
+    launches K2/K3 for CUDA tensors and takes their plain versions for CPU
+    tensors, with no fallback between them.  'jnp' names zs3_tpu's XLA
+    oracle; on the CPU every backend is the plain version already, and on
+    the GPU the choice is refused rather than sent to a second path."""
+    if backend not in ("auto", "pallas", "jnp"):
+        raise ValueError(f"unknown mmd_backend {backend!r}")
+    if backend == "jnp" and torch.device(device).type == "cuda":
+        raise ValueError(
+            "mmd_backend='jnp' selects zs3_tpu's XLA oracle; the port runs the "
+            "MMD on its kernels K2/K3 on the GPU (use 'auto')"
+        )
+    return batched_kernel_mmd_loss
+
+
+class ZS3Step:
+    """One ZS3 step (zs3_tpu.train.gmmn.make_zs3_step): features ->
+    sample -> generator MMD update -> classifier CE update.
+
+    Holds the generator, the classifier params {"kernel", "bias"}, their
+    Adam optimizers and the step's random stream.  `body` takes the
+    random draws as an argument (tests feed it zs3_tpu's); the gradients
+    of the last update stay in the parameters' `.grad`.
+    """
+
+    def __init__(
+        self,
+        model: DeepLab,
+        generator: GMMNGenerator,
+        cls_params: Params,
+        embeddings: torch.Tensor,
+        unseen_mask: torch.Tensor,
+        cfg: Config,
+        seed: int,
+    ):
+        self.model = model.eval()
+        self.generator = generator
+        self.embeddings = embeddings
+        self.unseen_mask = unseen_mask
+        self.seen_mask = 1.0 - unseen_mask
+        self.num_classes = int(unseen_mask.shape[0])
+        self.budget = cfg.gmmn.pixels_per_class
+        self.noise_dim = cfg.gmmn.noise_dim
+        self.sigmas = tuple(float(s) for s in cfg.gmmn.mmd_sigmas)
+        self.self_training = cfg.gmmn.self_training
+        self.device = embeddings.device
+        self.mmd_fn = select_mmd(cfg.gmmn.mmd_backend, self.device)
+        self.cls = {k: v.detach().clone().requires_grad_(True) for k, v in cls_params.items()}
+        self.gen_opt = torch.optim.Adam(generator.parameters(), lr=cfg.optim.gmmn_lr)
+        self.cls_opt = torch.optim.Adam(list(self.cls.values()), lr=cfg.optim.classifier_lr)
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+
+    def features(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Frozen-trunk features (N, D) f32 and their labels (N,) at the
+        feature grid.  no_grad, not inference_mode: KernelSum saves the
+        real features for its backward."""
+        with torch.no_grad():
+            feats = self.model.forward_features(batch["image"])
+        b, h, w, d = feats.shape
+        labels = downsample_labels(batch["label"], (h, w))
+        return feats.reshape(-1, d).float(), labels.reshape(-1)
+
+    def draw(self, num_pixels: int) -> Draws:
+        """(scores (C, N), noise1 (C, P, Z), noise2 (C, P, Z)) from the
+        step's generator."""
+        shape = (self.num_classes, self.budget, self.noise_dim)
+        u = draw_scores(self.num_classes, num_pixels, self.rng, self.device)
+        noise1 = torch.randn(shape, generator=self.rng, device=self.device)
+        noise2 = torch.randn(shape, generator=self.rng, device=self.device)
+        return u, noise1, noise2
+
+    def generate(self, noise: torch.Tensor) -> torch.Tensor:
+        """(C, P, feature_dim) features for every class from its embedding."""
+        emb = self.embeddings[:, None].expand(-1, noise.shape[1], -1)
+        return self.generator(emb, noise)
+
+    def sample(self, feats, labels, u) -> Tuple[torch.Tensor, torch.Tensor]:
+        return sample_class_pixels(feats, labels, self.num_classes, self.budget, u)
+
+    def generator_update(self, real, real_mask, noise1) -> torch.Tensor:
+        fake_mask, mmd_real_mask = mmd_training_masks(
+            real_mask, self.seen_mask, self.self_training
+        )
+        self.gen_opt.zero_grad(set_to_none=True)
+        mmd = self.mmd_fn(self.generate(noise1), real, fake_mask, mmd_real_mask, self.sigmas)
+        mmd.backward()
+        self.gen_opt.step()
+        return mmd.detach()
+
+    def classifier_update(self, real, real_mask, noise2) -> torch.Tensor:
+        with torch.no_grad():
+            fake_all = self.generate(noise2)
+        feats, mask = classifier_training_set(
+            real, real_mask, fake_all, self.unseen_mask, self.self_training
+        )
+        self.cls_opt.zero_grad(set_to_none=True)
+        logits = torch.einsum("cpd,dk->cpk", feats, self.cls["kernel"]) + self.cls["bias"]
+        logp = F.log_softmax(logits, dim=-1)
+        # Row c's label is c: its own class's log-probability.
+        diag = torch.arange(self.num_classes, device=logp.device)
+        nll = -logp.gather(2, diag[:, None, None].expand(-1, logp.shape[1], 1))[..., 0]
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        ce.backward()
+        self.cls_opt.step()
+        return ce.detach()
+
+    def body(self, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None):
+        """The step on `batch` with the given draws (drawn here if None)."""
+        feats, labels = self.features(batch)
+        u, noise1, noise2 = draws if draws is not None else self.draw(labels.shape[0])
+        real, real_mask = self.sample(feats, labels, u)
+        mmd = self.generator_update(real, real_mask, noise1)
+        ce = self.classifier_update(real, real_mask, noise2)
+        return {"mmd": mmd, "cls_ce": ce}
+
+    __call__ = body
+
+
+def make_zs3_eval_step(num_classes: int, ignore_index: int = 255):
+    """eval_step(model, cls_params, batch) -> (C, C) confusion: splice the
+    classifier, then the eval step (features, classify, K1, confusion)."""
+    eval_step = make_eval_step(num_classes, ignore_index)
+
+    def zs3_eval_step(model: DeepLab, cls_params: Params, batch) -> torch.Tensor:
+        return eval_step(splice_classifier(model, cls_params), batch)
+
+    return zs3_eval_step
+
+
+def refuse_unported(cfg: Config):
+    """Raise for the settings whose code paths are not ported yet."""
+    unported = {
+        "gmmn.graph_context": cfg.gmmn.graph_context,
+        "train.int8_features": cfg.train.int8_features,
+        "data.device_preprocess": cfg.data.device_preprocess,
+        "train.eval_scales/eval_flip (TTA)": (
+            tuple(cfg.train.eval_scales) != (1.0,) or cfg.train.eval_flip
+        ),
+        "train.gmmn_resume": bool(cfg.train.gmmn_resume),
+    }
+    bad = [name for name, on in unported.items() if on]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def class_embeddings(cfg: Config, num_classes: int) -> np.ndarray:
+    """(num_classes, embed_dim) embeddings of the synthetic classes (the
+    only dataset the port reads yet), or of `class_<i>` from the file at
+    cfg.data.embedding_path."""
+    if cfg.data.embedding_path is None:
+        # The synthetic classes' appearance is linear in these embeddings,
+        # so zero-shot transfer is well posed.
+        from zs3_tpu_torch.data.synthetic import synthetic_class_embeddings
+
+        emb = synthetic_class_embeddings(num_classes, cfg.gmmn.embed_dim)
+    else:
+        from zs3_tpu_torch.data.embeddings import load_class_embeddings
+
+        emb = load_class_embeddings(
+            [f"class_{i}" for i in range(num_classes)],
+            cfg.data.embedding_path,
+            cfg.gmmn.embed_dim,
+        )
+    if emb.shape[1] != cfg.gmmn.embed_dim:
+        raise ValueError(
+            f"embedding file {cfg.data.embedding_path!r} has dim {emb.shape[1]}, "
+            f"but gmmn.embed_dim={cfg.gmmn.embed_dim}"
+        )
+    return emb
+
+
+class GMMNTrainer:
+    """Step 2 of the pipeline: zero-shot transfer via generated features.
+
+    The trunk comes from cfg.train.resume (a `.pt` state_dict) or a
+    seeded init; the classifier starts from the trunk's own."""
+
+    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda"):
+        device = resolve_device(device)
+        refuse_unported(cfg)
+        self.train_loader, self.val_loader, num_classes = make_data_loader(cfg.data)
+        if cfg.model.num_classes != num_classes:
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=num_classes))
+        self.cfg = cfg
+        self.device = device
+        self.num_classes = num_classes
+        self.model = build_eval_model(cfg, device)
+        if not cfg.train.resume:
+            warnings.warn(
+                "GMMNTrainer is starting from a randomly initialised trunk (no "
+                "--resume): its features are meaningless and zero-shot "
+                "training will not transfer.",
+                stacklevel=2,
+            )
+        emb = class_embeddings(cfg, num_classes)
+        self.embeddings = torch.from_numpy(emb).to(device)
+        self.unseen = tuple(cfg.data.unseen_classes)
+        unseen_mask = torch.zeros(num_classes, dtype=torch.float32)
+        unseen_mask[list(self.unseen)] = 1.0
+        # Distinct streams from one seed: trunk init (seed), generator
+        # init (seed + 1), the step's draws (seed + 2).
+        self.generator = init_gmmn(build_gmmn(cfg.gmmn), cfg.train.seed + 1).to(device)
+        self.step = ZS3Step(
+            self.model, self.generator, extract_classifier(self.model),
+            self.embeddings, unseen_mask.to(device), cfg, seed=cfg.train.seed + 2,
+        )
+        self.eval_fn = make_zs3_eval_step(num_classes, cfg.data.ignore_index)
+        self.steps_per_epoch = cfg.train.steps_per_epoch or len(self.train_loader)
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        self.train_loader.set_epoch(epoch)
+        mmds, ces = [], []
+        t0 = time.time()
+        for i, batch in enumerate(self.train_loader):
+            if i >= self.steps_per_epoch:
+                break
+            out = self.step(device_batch(batch, self.device))
+            mmds.append(out["mmd"])
+            ces.append(out["cls_ce"])
+        return {
+            "epoch": epoch,
+            "mmd": float(torch.stack(mmds).mean()) if mmds else float("nan"),
+            "cls_ce": float(torch.stack(ces).mean()) if ces else float("nan"),
+            "epoch_seconds": time.time() - t0,
+        }
+
+    def validate(self) -> Dict[str, float]:
+        evaluator = Evaluator(self.num_classes, self.cfg.data.ignore_index, self.unseen)
+        for batch in self.val_loader:
+            evaluator.add_confusion(
+                self.eval_fn(self.model, self.step.cls, device_batch(batch, self.device))
+            )
+        return evaluator.compute().as_dict()
+
+    def fit(self) -> Dict[str, float]:
+        stats: Dict[str, float] = {}
+        report: Dict[str, float] = {}
+        for epoch in range(self.cfg.train.epochs):
+            stats = self.train_epoch(epoch)
+            # eval_interval <= 0 means never validate (like --no-val).
+            interval = self.cfg.train.eval_interval
+            if interval > 0 and (epoch + 1) % interval == 0:
+                report = self.validate()
+        return {**stats, **report}

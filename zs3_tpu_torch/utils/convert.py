@@ -1,4 +1,4 @@
-"""Weight carrier: zs3_tpu (flax) variables -> the port's state_dict.
+"""Weight carriers: zs3_tpu (flax) variables -> the port's state_dicts.
 
 `state_dict_from_flax` takes zs3_tpu's ``{"params", "batch_stats"}``
 tree of a DeepLab with a ResNet encoder, as nested mappings of arrays,
@@ -10,6 +10,9 @@ and returns the state_dict of zs3_tpu_torch.models.deeplab.DeepLab:
     setting: flax's 0.9 is torch's 0.1);
   * flax module paths (encoder/layer1_block0/conv1/conv/kernel, ...) ->
     torchvision and oracle names (backbone.layer1.0.conv1.weight, ...).
+
+`gmmn_state_dict_from_flax` does the same for the GMMN generator's
+Dense params.
 """
 
 from __future__ import annotations
@@ -98,4 +101,22 @@ def state_dict_from_flax(variables: Mapping[str, Mapping]) -> "OrderedDict[str, 
                 raise ValueError(f"unrecognized leaf: {'/'.join(path)}")
     for module in bn_modules:
         out[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return OrderedDict(sorted(out.items()))
+
+
+def gmmn_state_dict_from_flax(params: Mapping[str, Mapping]) -> "OrderedDict[str, torch.Tensor]":
+    """zs3_tpu GMMNGenerator params -> zs3_tpu_torch GMMNGenerator state_dict:
+    each Dense ``kernel`` (in, out) becomes the Linear ``weight`` (out, in)
+    and ``bias`` stays ``bias``; layer names (hidden0.., out) carry over."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params.get("params", params)):
+        if len(path) != 2 or path[1] not in ("kernel", "bias"):
+            raise ValueError(f"unrecognized gmmn entry: {'/'.join(path)}")
+        arr = np.asarray(value, dtype=np.float32)
+        if path[1] == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: expected an (in, out) kernel")
+            out[f"{path[0]}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
+        else:
+            out[f"{path[0]}.bias"] = torch.from_numpy(arr.copy())
     return OrderedDict(sorted(out.items()))

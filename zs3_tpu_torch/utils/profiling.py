@@ -14,9 +14,9 @@ def profile_device(fn: Callable[[], None], steps: int) -> Dict:
 
     Returns the wall time of the window (ending in a synchronize), the
     count and summed time of the device's own events (kernels, copies,
-    sets), the device's idle share (1 - busy/wall; one stream, so they do
-    not overlap), and the kernels and the host ops, each sorted by the
-    device time it accounts for.  An op's device time is that of the
+    sets; not user annotations), the device's idle share (1 - busy/wall, unclamped;
+    one stream, so they do not overlap), and the kernels and the host
+    ops, each sorted by the device time it accounts for.  An op's device time is that of the
     kernels it launched, so the two lists overlap and only the kernels add
     up to the busy time.
     """
@@ -33,7 +33,11 @@ def profile_device(fn: Callable[[], None], steps: int) -> Dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    kernels = [e for e in events if e.device_type != DeviceType.CPU]
+    # A user annotation (record_function, such as the optimizers' own
+    # "Optimizer.step#...") also shows on the device as a span over the
+    # kernels it launched: not a kernel, and not busy time of its own.
+    kernels = [e for e in events if e.device_type != DeviceType.CPU
+               and not getattr(e, "is_user_annotation", False)]
     ops = [e for e in events if e.device_type == DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
 
@@ -49,7 +53,7 @@ def profile_device(fn: Callable[[], None], steps: int) -> Dict:
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "kernel_launches": sum(e.count for e in kernels),
-        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels": rows(kernels),
         "ops": rows(ops),
     }
