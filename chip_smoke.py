@@ -5,20 +5,27 @@
 Builds every hand-written kernel of the port from zs3_tpu_torch/csrc
 (one nvcc per source, all at once) and holds each against its plain
 PyTorch version on the card: K1 (upsample+argmax), K2 and K3 (the MMD's
-kernel sums and their gradient), and the space-to-batch dilated conv
-against cuDNN's.  Then it drives the port's two paths at full width
-(DeepLabv3+ ResNet-101, os16, 513x513, bf16, synthetic data, unseen
-split 2), each through `python -m zs3_tpu_torch.cli` with the launch
-counts set to 0 just before and read just after:
+kernel sums and their gradient), K4 (the fused classify+upsample tail),
+and the space-to-batch dilated conv against cuDNN's.  Then it drives the
+port's paths at full width (DeepLabv3+ ResNet-101, os16, 513x513, bf16,
+synthetic data, unseen split 2), each with the launch counts set to 0
+just before and read just after:
 
   * `evaluate` (eval batch 4): one K1 launch per eval batch;
   * `train-gmmn` (train batch 8, 128 pixels per class, 4 steps, then one
     validation): each step launches K2 three times (fake-fake, real-real,
     fake-real) and K3 twice (fake-fake once, for both of its equal sides,
     and fake-real for x: only the generated features need a gradient),
-    and the validation one K1 per eval batch.
+    and the validation one K1 per eval batch;
+  * `serve --fused-tail --serve-batch 8`: an in-process InferenceServer
+    answering 64 concurrent POSTs of VOC-sized PNGs, 2 sliding-window
+    requests and 1 colorized one; one K4 launch per batched forward and
+    per batch of sliding windows;
+  * `infer --fused-tail` on 8 PNG files, plain and with --sliding;
+  * `evaluate --fused-tail --eval-flip --eval-scales 0.75,1.0` (ms+flip
+    TTA): one K4 launch per view and eval batch.
 
-It checks that what comes out is right, times and profiles both loops,
+It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
 size (ResNet-50, 65x65, f32).  Each phase prints one JSON line; a failed
 phase exits nonzero.  The line before the last is the kernel table, the
@@ -30,10 +37,12 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import http.client
 import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -44,8 +53,20 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock, the shortest sleep
-KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum")
+KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum", "classify_resize")
+FULL_WIDTH = [
+    "--dataset", "synthetic", "--backbone", "resnet101", "--out-stride", "16",
+    "--crop-size", "513", "--base-size", "513", "--compute-dtype", "bfloat16",
+    "--seed", "0", "--device", "cuda",
+]
+SERVE_BATCH = 8
+SERVE_ARGS = ["serve", *FULL_WIDTH, "--fused-tail", "--serve-batch", str(SERVE_BATCH),
+              "--port", "0"]
+TTA_ARGS = ["evaluate", *FULL_WIDTH, "--eval-batch-size", "4", "--unseen-split", "2",
+            "--fused-tail", "--eval-flip", "--eval-scales", "0.75,1.0"]
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 SLICE_ARGS = [
     "evaluate", "--dataset", "synthetic", "--backbone", "resnet101",
     "--out-stride", "16", "--crop-size", "513", "--base-size", "513",
@@ -163,25 +184,70 @@ def host_ms(fn, calls: int = 21) -> float:
     return sorted(times)[calls // 2]
 
 
-def near_ties(logits: torch.Tensor, size) -> torch.Tensor:
+def near_ties(logits: torch.Tensor, size, tol=None) -> torch.Tensor:
     """Pixels whose top-2 upsampled logits (plain version, f32) are within
-    1e-5 * max(1, |top|): another product order may flip them."""
+    1e-5 * max(1, |top|), or within `tol` (a per-pixel tensor) when given:
+    another product order, or another rounding, may flip them."""
     from zs3_tpu_torch.ops.resize import resize_bilinear
 
     top2 = resize_bilinear(logits.float(), size).topk(2, dim=-1).values
     gap = top2[..., 0] - top2[..., 1]
+    if tol is not None:
+        return gap <= tol
     return gap < 1e-5 * top2[..., 0].abs().clamp(min=1.0)
 
 
-def compare_labels(got, want, logits, size, phase, what):
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    _, exp = torch.frexp(x.float().abs())  # |x| = m * 2**exp, m in [0.5, 1)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+def tap_max(logits: torch.Tensor, size) -> torch.Tensor:
+    """(B, HO, WO): the largest |logit| over all classes at the (up to
+    four) source pixels an align-corners output pixel blends.  Rounding
+    in bf16 happens at the taps' scale, so bf16 tolerances are counted in
+    ulps of this value."""
+    m = logits.float().abs().amax(-1)
+    m = torch.maximum(m, torch.cat([m[:, 1:], m[:, -1:]], 1))
+    m = torch.maximum(m, torch.cat([m[:, :, 1:], m[:, :, -1:]], 2))
+    (hi, wi), (ho, wo) = m.shape[1:3], size
+    rows = (torch.arange(ho, device=m.device) * (hi - 1)) // max(ho - 1, 1)
+    cols = (torch.arange(wo, device=m.device) * (wi - 1)) // max(wo - 1, 1)
+    return m[:, rows][:, :, cols]
+
+
+def compare_labels(got, want, logits, size, phase, what, tol=None):
     """Fail unless labels agree outside near-ties; returns (near-ties,
     max |label difference| outside them)."""
-    ties = near_ties(logits, size)
+    ties = near_ties(logits, size, tol)
     diff = got != want
     bad = int((diff & ~ties).sum())
     check(bad == 0, phase, f"{what}: {bad} labels differ outside near-ties")
     outside = (got.long() - want.long()).abs().masked_fill(ties, 0)
     return int(ties.sum()), int(outside.max())
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from zs3_tpu_torch.ops import eval_kernels, tail_kernels
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+
+    eval_kernels.upsample_argmax.launches = 0
+    mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
+    tail_kernels.classify_resize.launches = 0
+
+
+def read_counts() -> dict:
+    from zs3_tpu_torch.ops import eval_kernels, tail_kernels
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+
+    return {
+        "K1": eval_kernels.upsample_argmax.launches,
+        "K2": mk.kernel_sum.launches,
+        "K3": mk.kernel_sum_grad.launches,
+        "K4": tail_kernels.classify_resize.launches,
+    }
 
 
 def phase_env() -> str:
@@ -267,6 +333,138 @@ def phase_kernels():
     return timings
 
 
+def k4_bound(bsz, hi, wi, c, k, dtype):
+    """(least time in ms, "bytes" or "operations") for K4 on these shapes:
+    read the features once, write the logits once (the weights are
+    negligible); classify (2 C K per source pixel, at the dtype's peak),
+    then the two-tap resize, H blend then W blend (3 f32 ops each)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    ho, wo = 4 * (hi - 1) + 1, 4 * (wi - 1) + 1
+    bytes_moved = bsz * (hi * wi * c + ho * wo * k) * size + (c * k + k) * 4
+    classify = 2 * bsz * hi * wi * c * k
+    blends = 3 * bsz * k * (ho * wi + ho * wo)
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = classify / rate + blends / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tail_inputs(gen, bsz, hi, wi, c, k, dtype):
+    feats = torch.randn((bsz, hi, wi, c), device="cuda", generator=gen).to(dtype)
+    w = torch.randn((c, k), device="cuda", generator=gen) / c**0.5
+    b = torch.randn((k,), device="cuda", generator=gen) * 0.1
+    return feats, w, b
+
+
+def check_k4(feats, w, b, what):
+    """K4 against its plain version on the same inputs.  f32 (TF32 off):
+    rtol/atol 1e-5.  bf16: within 4 bf16 ulps of the largest |logit| at
+    the output pixel's source taps (the plain version rounds after the
+    classify, the bias and each resize product; K4 once at the store).
+    Labels equal outside near-ties (top-2 gap under 1e-5 relative in f32,
+    under 8 ulps of the taps' scale in bf16).  Returns the errors."""
+    from zs3_tpu_torch.ops.tail_kernels import classify_resize, classify_resize_reference
+
+    size = (4 * (feats.shape[1] - 1) + 1, 4 * (feats.shape[2] - 1) + 1)
+    got = classify_resize(feats, w, b, size)
+    want = classify_resize_reference(feats, w, b, size)
+    torch.cuda.synchronize()
+    phase = "tail kernels"
+    check(got.shape == want.shape and got.dtype == feats.dtype, phase,
+          f"{what}: got {tuple(got.shape)} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), phase, f"{what}: non-finite logits")
+    err = (got.float() - want.float()).abs()
+    src = feats.float() @ w.to(feats.dtype).float() + b.to(feats.dtype).float()
+    out = {"max_abs_err": float(err.max())}
+    if feats.dtype == torch.float32:
+        ok = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+        check(ok, phase, f"{what}: f32 K4 off by {out['max_abs_err']}")
+        tol = None
+    else:
+        ulp = bf16_ulp(tap_max(src, size))[..., None]
+        out["max_err_in_tap_ulps"] = float((err / ulp).max())
+        check(out["max_err_in_tap_ulps"] <= 4, phase,
+              f"{what}: bf16 K4 off by {out['max_err_in_tap_ulps']} ulps")
+        tol = 8 * ulp[..., 0]
+    out["near_ties"], _ = compare_labels(
+        got.float().argmax(-1), want.float().argmax(-1), src, size, phase, what, tol)
+    return out
+
+
+def phase_tail():
+    """K4 on the card against its plain version at the serve path's shapes
+    (bf16, and f32 with TF32 off), the edge shapes of
+    tests/test_pallas_tail.py, a C that is not a multiple of 4; its
+    refusals; and its times beside the bound, the plain version and
+    F.interpolate(F.conv2d(...))."""
+    import torch.nn.functional as F
+
+    from zs3_tpu_torch.ops.tail_kernels import classify_resize, classify_resize_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ((1, 129, 129, 256, 21), bf16, True),   # one request
+        ((8, 129, 129, 256, 21), bf16, True),   # serve batch 8, the main path
+        ((1, 129, 129, 256, 21), f32, False),
+        ((8, 129, 129, 256, 21), f32, True),
+        ((4, 97, 97, 256, 21), bf16, False),    # TTA scale 0.75 (385x385 input)
+        ((4, 161, 161, 256, 21), bf16, False),  # TTA scale 1.25 (641x641 input)
+        ((2, 17, 17, 16, 5), f32, False),       # crop-65 geometry, odd class count
+        ((1, 9, 9, 8, 21), f32, False),         # one band, clamped last row
+        ((3, 17, 17, 32, 128), f32, False),     # K = 128
+        ((2, 17, 23, 30, 21), f32, False),      # C = 30, W != H, ragged column tile
+        ((2, 17, 17, 16, 7), bf16, False),      # tests/test_pallas_tail.py's bf16 case
+    ]
+    timings = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for shape, dtype, timed in cases:
+            feats, w, b = tail_inputs(gen, *shape, dtype)
+            row = dict(phase="tail kernels", kernel="classify_resize", shape=list(shape),
+                       dtype=str(dtype).split(".")[-1],
+                       **check_k4(feats, w, b, f"{shape} {dtype}"))
+            if timed:
+                bsz, hi, wi, c, k = shape
+                size = (4 * (hi - 1) + 1, 4 * (wi - 1) + 1)
+                x_nchw = feats.permute(0, 3, 1, 2)  # channels_last view
+                w4, b4 = w.t().to(dtype)[:, :, None, None].contiguous(), b.to(dtype)
+                row.update(zip(("bound_ms", "bound_by"), k4_bound(*shape, dtype)))
+                row.update(
+                    kernel_ms=time_ms(lambda: classify_resize(feats, w, b, size),
+                                      what=f"K4 {shape}"),
+                    plain_ms=time_ms(lambda: classify_resize_reference(feats, w, b, size),
+                                     what=f"K4 plain {shape}"),
+                    library_ms=time_ms(lambda: F.interpolate(
+                        F.conv2d(x_nchw, w4, b4), size=size, mode="bilinear",
+                        align_corners=True), what=f"K4 library {shape}"),
+                )
+                timings[(shape[0], row["dtype"])] = row
+            emit(**row)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+    before = classify_resize.launches
+    feats, w, b = tail_inputs(gen, 1, 17, 17, 16, 5, f32)
+    refusals = {
+        "cpu tensor": (ValueError, lambda: classify_resize(feats.cpu(), w.cpu(), b.cpu(),
+                                                           (65, 65))),
+        "requires_grad": (RuntimeError, lambda: classify_resize(
+            feats.clone().requires_grad_(True), w, b, (65, 65))),
+        "unsupported geometry": (ValueError, lambda: classify_resize(
+            feats[:, :16, :16].contiguous(), w, b, (61, 61))),
+    }
+    for what, (error, fn) in refusals.items():
+        try:
+            fn()
+        except error:
+            continue
+        fail("tail kernels", f"K4 did not refuse a {what}")
+    check(classify_resize.launches == before, "tail kernels", "a refused call counted")
+    emit(phase="tail kernels", refused=sorted(refusals), ok=True)
+    return timings
+
+
 def phase_dilated():
     """The ASPP's dilated 3x3 convs at the main path's shape, in bf16, as
     cuDNN runs them and as space-to-batch (models/layers.py): the two must
@@ -303,6 +501,7 @@ def phase_slice():
     from zs3_tpu_torch.metrics.evaluator import Evaluator
     from zs3_tpu_torch.ops import eval_kernels
     from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops import tail_kernels
     from zs3_tpu_torch.train.seen import build_eval_model, device_batch, make_eval_step
     from zs3_tpu_torch.utils.profiling import profile_device
 
@@ -310,8 +509,7 @@ def phase_slice():
     loader, num_classes = make_val_loader(cfg.data)
 
     # The main path, through the entry point a user calls; counts from 0.
-    eval_kernels.upsample_argmax.launches = 0
-    mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
+    reset_counts()
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
@@ -325,6 +523,8 @@ def phase_slice():
           f"K1 launched {launches} times for {len(loader)} eval batches")
     check(mk.kernel_sum.launches == mk.kernel_sum_grad.launches == 0, "slice",
           "evaluate launched an MMD kernel")
+    check(tail_kernels.classify_resize.launches == 0, "slice",
+          "evaluate without --fused-tail launched K4")
     check(all(is_finite(v) for v in metrics.values()), "slice", f"non-finite metrics {metrics}")
     check({"seen_miou", "unseen_miou", "harmonic_miou"} <= metrics.keys(), "slice",
           "seen/unseen/harmonic mIoU missing")
@@ -392,6 +592,317 @@ def phase_slice():
     emit(phase="slice", check="tf32-off batch, K1 vs plain", near_ties=ties,
          pixels=got.numel(), ok=True)
     return launches
+
+
+def voc_like_images(seed: int, count: int, sizes=((375, 500), (500, 375))):
+    """`count` smooth synthetic RGB images of VOC's sizes (500x375 and
+    375x500 in turn): a coarse random field upsampled, plus noise."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    images = []
+    for i in range(count):
+        h, w = sizes[i % len(sizes)]
+        coarse = rng.integers(0, 256, (h // 25, w // 25, 3), dtype=np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR), np.int16)
+        img = img + rng.integers(-8, 9, img.shape)
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+    return images
+
+
+def png_bytes(image) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def post(port: int, body: bytes, query: str = ""):
+    """POST /predict; returns (status, decoded PNG or error text, seconds)."""
+    import numpy as np
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/predict" + query, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    seconds = time.perf_counter() - t0
+    if resp.status != 200:
+        return resp.status, data.decode(errors="replace"), seconds
+    return resp.status, np.asarray(Image.open(io.BytesIO(data))), seconds
+
+
+def percentile(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(round(q / 100 * (len(values) - 1))))]
+
+
+def fused_vs_standard(predictor, canvases, phase):
+    """Labels of `predictor` on letterboxed uint8 canvases with the fused
+    tail (K4) and with the standard tail: equal outside near-ties (top-2
+    gap within 8 bf16 ulps of the taps' scale).  Returns the counts."""
+    from zs3_tpu_torch.data.transforms import batched_normalize_device
+
+    model = predictor.model
+    with torch.inference_mode():
+        fused = predictor._logits(canvases)
+        model.fused_tail = False
+        try:
+            standard = predictor._logits(canvases)
+        finally:
+            model.fused_tail = True
+        x = torch.from_numpy(canvases).cuda()
+        src = model.classify(model.forward_features(batched_normalize_device(x))).float()
+    size = tuple(fused.shape[1:3])
+    tol = 8 * bf16_ulp(tap_max(src, size))
+    ties, _ = compare_labels(fused.argmax(-1), standard.argmax(-1), src, size, phase,
+                             "fused vs standard tail", tol)
+    return {"pixels": fused.shape[0] * size[0] * size[1], "near_ties": ties,
+            "labels_differ": int((fused.argmax(-1) != standard.argmax(-1)).sum()),
+            "max_abs_logit_diff": float((fused - standard).abs().max())}
+
+
+def phase_serve():
+    """`serve --fused-tail --serve-batch 8` at full width: an in-process
+    InferenceServer on port 0 answers 64 POSTs from 16 client threads,
+    then 2 sliding-window requests of a 750x1000 image and 1 colorized
+    request; K4 launches once per batched forward (the warmup's too) and
+    once per batch of sliding windows.  Then the Predictor's throughput
+    with and without the fused tail, and its device time."""
+    import numpy as np
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data.transforms import letterbox_image
+    from zs3_tpu_torch.serve import InferenceServer
+    from zs3_tpu_torch.train.predict import sliding_windows
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    phase = "serve slice"
+    args = cli.make_parser().parse_args(SERVE_ARGS)
+    cfg = cli.build_config(args)
+    images = voc_like_images(4, 64)
+    bodies = [png_bytes(img) for img in images]
+    big = voc_like_images(5, 1, sizes=((750, 1000),))[0]
+    big_body = png_bytes(big)
+    n_classes = cfg.model.num_classes
+
+    # The main path, through the entry point a user calls; counts from 0.
+    reset_counts()
+    t_setup = time.time()
+    server = InferenceServer(cfg, port=args.port, serve_batch=args.serve_batch,
+                             device=args.device).start(warmup=True)
+    try:
+        setup_s = time.time() - t_setup
+        batcher = server.service.batcher
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as pool:
+            results = list(pool.map(lambda body: (*post(server.port, body),
+                                                  time.perf_counter()), bodies))
+        wall = time.perf_counter() - t0
+        sliding = [post(server.port, big_body, "?sliding=1") for _ in range(2)]
+        colored = post(server.port, bodies[1], "?color=1")
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        server.stop()
+    for (status, pred, _, _), img in zip(results, images):
+        check(status == 200, phase, f"status {status}: {pred}")
+        check(pred.shape == img.shape[:2] and int(pred.max()) < n_classes, phase,
+              f"answer {pred.shape} max {pred.max()} for an image {img.shape}")
+    for status, pred, _ in sliding:
+        check(status == 200 and pred.shape == big.shape[:2] and int(pred.max()) < n_classes,
+              phase, f"sliding answer {status} {getattr(pred, 'shape', pred)}")
+    check(colored[0] == 200 and colored[1].shape == (*images[1].shape[:2], 3), phase,
+          f"color answer {colored[0]} {getattr(colored[1], 'shape', colored[1])}")
+    sizes = list(batcher.batch_sizes)
+    check(sum(sizes) == 64 + 1 + 1 and max(sizes) > 1, phase,
+          f"batch sizes {sizes}: 64 requests, the colorized one and the warmup")
+    windows = len(sliding_windows(big.shape[:2], cfg.data.crop_size))
+    window_batches = 2 * -(-windows // 8)
+    check(launches["K4"] == batcher.groups + window_batches, phase,
+          f"K4 launched {launches['K4']} times for {batcher.groups} batched forwards "
+          f"and {window_batches} batches of sliding windows")
+    check(launches["K1"] == launches["K2"] == launches["K3"] == 0, phase,
+          f"serving launched {launches}")
+
+    # Requests/s over 4 windows of 16 consecutive completions.
+    ends = sorted(r[3] for r in results)
+    marks = [t0] + ends[15::16]
+    window_rates = [16 / (b - a) for a, b in zip(marks, marks[1:])]
+    latencies = [r[2] for r in results]
+    predictor = server.service.predictor
+    canvases = np.stack([letterbox_image(img, cfg.data.crop_size)[0] for img in images[:8]])
+    agree = fused_vs_standard(predictor, canvases, phase)
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(SERVE_ARGS),
+         requests=64, client_threads=16, setup_seconds_with_warmup=setup_s,
+         requests_per_sec=64 / wall, requests_per_sec_windows=window_rates,
+         latency_p50_ms=1e3 * percentile(latencies, 50),
+         latency_p99_ms=1e3 * percentile(latencies, 99),
+         sliding_ms=[1e3 * r[2] for r in sliding], batch_groups=batcher.groups,
+         batch_sizes=sizes, sliding_windows_per_image=windows, launches=launches,
+         fused_vs_standard=agree)
+
+    # Predictor.predict_batch images/s on 8 letterboxed images, standard
+    # tail and fused tail in turns (off, on, on, off), 5 windows of 5 calls.
+    model = predictor.model
+    frames = list(canvases)
+    rates = {}
+    for turn, fused in enumerate((False, True, True, False)):
+        model.fused_tail = fused
+        median, spread = rate_windows(lambda: predictor.predict_batch(frames), calls=5)
+        rates[f"{turn}_{'fused' if fused else 'standard'}"] = {
+            "images_per_sec": 8 * median, "windows": [8 * r for r in spread]}
+    model.fused_tail = True
+    prof = profile_device(lambda: predictor.predict_batch(frames), steps=3)
+    check(prof["device_busy_ms"] > 0, phase, "the profiler saw no device time")
+    k4_ms = sum(e["device_ms"] for e in prof["kernels"] if "classify_resize" in e["name"])
+    fused_rate = rates["1_fused"]["images_per_sec"]
+    device_ms_per_batch = prof["device_busy_ms"] / 3
+    prof["kernels"], prof["ops"] = prof["kernels"][:12], prof["ops"][:12]
+    emit(phase="serve profile", step="Predictor.predict_batch, 8 letterboxed 513x513 images",
+         predict_batch=rates, device_ms_per_batch=device_ms_per_batch,
+         k4_device_ms_per_batch=k4_ms / 3, k4_share=k4_ms / prof["device_busy_ms"],
+         idle_share_untraced=1.0 - device_ms_per_batch * fused_rate / 8 / 1e3, **prof)
+    return launches
+
+
+def phase_infer():
+    """`cli infer --fused-tail` on 8 PNG files at full width, plain and
+    with --sliding: every file written (labels and colorized), K4 launched
+    once per batch of 8 images (plain) and once per image (sliding: a
+    500x375 image pads to one 513x513 window)."""
+    from zs3_tpu_torch import cli
+
+    phase = "infer"
+    src = os.path.join(SCRATCH, "infer_in")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(src)
+    paths = []
+    for i, img in enumerate(voc_like_images(6, 8)):
+        paths.append(os.path.join(src, f"image_{i}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(png_bytes(img))
+    out = {}
+    for mode, extra, want_k4 in (("plain", [], 1), ("sliding", ["--sliding"], 8)):
+        target = os.path.join(SCRATCH, f"infer_{mode}")
+        argv = ["infer", *paths, "--output", target, *FULL_WIDTH, "--fused-tail", *extra]
+        reset_counts()
+        t0 = time.time()
+        result, predictor = cli.run(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(result["written"] == 16 and len(os.listdir(target)) == 16, phase,
+              f"{mode}: wrote {result['written']} files, {len(os.listdir(target))} on disk")
+        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": want_k4}, phase,
+              f"{mode}: launches {launches}, want K4 {want_k4}")
+        out[mode] = {"written": result["written"], "launches": launches,
+                     "wall_seconds_with_setup": time.time() - t0}
+        del predictor
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli infer <8 PNGs> --output DIR "
+         + " ".join(FULL_WIDTH) + " --fused-tail [--sliding]", **out)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return out
+
+
+def phase_tta():
+    """`cli evaluate --fused-tail --eval-flip --eval-scales 0.75,1.0` at
+    full width on the synthetic val set: K4 launches once per view (2
+    scales x 2 mirrors) and eval batch; then the TTA step again on the
+    same model and batches, whose confusion sums to the valid pixels and
+    whose metrics are the CLI's."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data.loader import make_val_loader
+    from zs3_tpu_torch.metrics.evaluator import Evaluator
+    from zs3_tpu_torch.metrics.tta import make_tta_eval_step
+    from zs3_tpu_torch.train.seen import build_eval_model, device_batch
+
+    phase = "tta"
+    cfg = cli.build_config(cli.make_parser().parse_args(TTA_ARGS))
+    loader, num_classes = make_val_loader(cfg.data)
+    views = len(cfg.train.eval_scales) * 2
+    reset_counts()
+    t0 = time.time()
+    metrics, _ = cli.run(TTA_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": views * len(loader)}, phase,
+          f"launches {launches} for {views} views x {len(loader)} eval batches")
+    check(all(is_finite(v) for v in metrics.values()), phase, f"non-finite metrics {metrics}")
+    model = build_eval_model(cfg, "cuda")
+    step = make_tta_eval_step(num_classes, cfg.data.ignore_index, cfg.train.eval_scales,
+                              cfg.train.eval_flip)
+    evaluator = Evaluator(num_classes, cfg.data.ignore_index, cfg.data.unseen_classes)
+    valid = 0
+    t1 = time.perf_counter()
+    for batch in loader:
+        batch = device_batch(batch, torch.device("cuda"))
+        evaluator.add_confusion(step(model, batch))
+        valid += int((batch["label"] != cfg.data.ignore_index).sum())
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    check(int(evaluator.confusion.sum()) == valid, phase,
+          f"confusion sums to {evaluator.confusion.sum()}, expected {valid}")
+    again = evaluator.compute().as_dict()
+    check(all(abs(again[k] - metrics[k]) <= 1e-3 for k in metrics), phase,
+          f"TTA again disagrees: {again} vs {metrics}")
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(TTA_ARGS),
+         metrics=metrics, launches=launches, views=views, eval_batches=len(loader),
+         pixels=valid, wall_seconds_with_setup=wall,
+         images_per_sec_tta_loop_with_host_batches=len(loader.dataset) / loop_s)
+    return launches
+
+
+def phase_serve_reference():
+    """The Predictor on the card against the Predictor on the CPU (fused
+    tail, f32, TF32 off): ResNet-50 at 65x65, the same seeded weights, 4
+    letterboxed images and one sliding-window image.  Logits within 1e-4
+    of the largest, labels equal outside near-ties."""
+    import numpy as np
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data.transforms import batched_normalize_device, letterbox_image
+    from zs3_tpu_torch.ops import tail_kernels
+    from zs3_tpu_torch.train.predict import Predictor
+
+    phase = "serve reference"
+    args = ["serve", "--dataset", "synthetic", "--backbone", "resnet50", "--crop-size", "65",
+            "--base-size", "65", "--compute-dtype", "float32", "--fused-tail"]
+    cfg = cli.build_config(cli.make_parser().parse_args(args))
+    images = voc_like_images(7, 4)
+    canvases = np.stack([letterbox_image(img, 65)[0] for img in images])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu, cpu = Predictor(cfg, device="cuda"), Predictor(cfg, device="cpu")
+        before = tail_kernels.classify_resize.launches
+        got = gpu._logits(canvases).cpu()
+        check(tail_kernels.classify_resize.launches == before + 1, phase,
+              "the card's Predictor did not run K4")
+        want = cpu._logits(canvases)
+        sliding_gpu = gpu.predict_sliding(images[0][:100, :150])
+        sliding_cpu = cpu.predict_sliding(images[0][:100, :150])
+        with torch.inference_mode():
+            m = cpu.model
+            src = m.classify(m.forward_features(batched_normalize_device(
+                torch.from_numpy(canvases)))).float()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= 1e-4 * scale, phase, f"logits off by {err} (max |logit| {scale})")
+    ties, _ = compare_labels(got.argmax(-1), want.argmax(-1), src, (65, 65), phase,
+                             "card vs CPU labels")
+    moved = int((sliding_gpu != sliding_cpu).sum())
+    check(moved <= 0.001 * sliding_cpu.size, phase,
+          f"sliding labels: {moved} of {sliding_cpu.size} differ card vs CPU")
+    emit(phase=phase, max_abs_logit_err=err, max_abs_logit=scale, near_ties=ties,
+         sliding_pixels_differ=moved, ok=True)
 
 
 def phase_reference():
@@ -627,8 +1138,6 @@ def phase_zs3():
     device time by stage."""
     from zs3_tpu_torch import cli
     from zs3_tpu_torch.metrics.evaluator import Evaluator
-    from zs3_tpu_torch.ops import eval_kernels
-    from zs3_tpu_torch.ops import mmd_kernels as mk
     from zs3_tpu_torch.train.seen import device_batch
     from zs3_tpu_torch.utils.profiling import profile_device
 
@@ -636,19 +1145,14 @@ def phase_zs3():
 
     # The main path, through the entry point a user calls (`cli.run` is
     # `cli.main` without the print); counts from 0.
-    eval_kernels.upsample_argmax.launches = 0
-    mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
+    reset_counts()
     t0 = time.time()
     result, trainer = cli.run(ZS3_ARGS)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {
-        "K1": eval_kernels.upsample_argmax.launches,
-        "K2": mk.kernel_sum.launches,
-        "K3": mk.kernel_sum_grad.launches,
-    }
+    launches = read_counts()
     eval_batches = len(trainer.val_loader)
-    want = {"K1": eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS}
+    want = {"K1": eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS, "K4": 0}
     check(launches == want, phase,
           f"launches {launches} for {ZS3_STEPS} steps and {eval_batches} eval batches")
     check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
@@ -815,12 +1319,19 @@ def main() -> int:
     phase_build()
     timings = phase_kernels()
     mmd_errors, mmd_timings = phase_mmd()
+    tail_timings = phase_tail()
     phase_dilated()
     launches = phase_slice()
     zs3_launches = phase_zs3()
+    serve_launches = phase_serve()
+    infer_launches = phase_infer()
+    tta_launches = phase_tta()
     phase_reference()
     phase_zs3_reference()
+    phase_serve_reference()
     b4, b16 = timings[4], timings[16]
+    k4 = tail_timings[(SERVE_BATCH, "bfloat16")]
+    k4_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
     main_err, main_t = mmd_errors["main path"], mmd_timings[128]
 
     def mmd_row(name, key, source_line, err):
@@ -859,6 +1370,26 @@ def main() -> int:
     },
         mmd_row("mmd_kernel_sum", "K2", 54, main_err["k2_max_abs_err"]),
         mmd_row("mmd_kernel_sum_grad", "K3", 79, main_err["k3_dx_max_abs_err"]),
+        {
+            "name": "classify_resize",
+            "route": "cuda",
+            "source": "zs3_tpu_torch/csrc/classify_resize.cu",
+            "replaces": "zs3_tpu/ops/pallas_tail.py:95",
+            "launches": serve_launches["K4"],
+            "launches_infer": {m: v["launches"]["K4"] for m, v in infer_launches.items()},
+            "launches_tta": tta_launches["K4"],
+            "max_abs_err": k4["max_abs_err"],
+            "max_err_in_tap_ulps": k4["max_err_in_tap_ulps"],
+            "ms": k4["kernel_ms"],
+            "plain_ms": k4["plain_ms"],
+            "bound_ms": k4["bound_ms"],
+            "bound_by": k4["bound_by"],
+            "library_ms": k4["library_ms"],
+            "shape": k4["shape"],
+            "dtype": "bfloat16",
+            "b1": {f: tail_timings[(1, "bfloat16")][f] for f in k4_fields},
+            "b8_f32": {f: tail_timings[(SERVE_BATCH, "float32")][f] for f in k4_fields},
+        },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -307,8 +307,8 @@ def test_train_gmmn_defaults_to_the_gpu():
     ("gmmn", "graph_context", True),
     ("train", "int8_features", True),
     ("data", "device_preprocess", True),
-    ("train", "eval_scales", (0.5, 1.0)),
-    ("train", "eval_flip", True),
+    ("train", "int8_eval", True),     # TTA (eval_scales/eval_flip) is ported now
+    ("data", "dataset", "context"),
     ("train", "gmmn_resume", "ckpt"),
 ])
 def test_trainer_refuses_unported_settings(change):

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
     )
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("train.seen", "train.gmmn", "ops.mmd", "ops.mmd_kernels", "ops.sampling",
-                 "models.gmmn", "data.embeddings", "cli"):
+                 "models.gmmn", "data.embeddings", "cli", "ops.tail_kernels",
+                 "train.predict", "serve", "metrics.tta", "utils.viz"):
         assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 
@@ -66,6 +67,8 @@ def _tiny_cfg():
 def test_entry_points_default_to_the_gpu(no_gpu):
     from zs3_tpu_torch import cli
     from zs3_tpu_torch.data.loader import make_val_loader
+    from zs3_tpu_torch.serve import InferenceServer, SegmentationService
+    from zs3_tpu_torch.train.predict import Predictor
     from zs3_tpu_torch.train.seen import build_eval_model, evaluate, validate
 
     cfg = _tiny_cfg()
@@ -79,6 +82,16 @@ def test_entry_points_default_to_the_gpu(no_gpu):
         validate(model, loader, n, cfg.data)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["evaluate", "--dataset", "synthetic", "--crop-size", "33"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SegmentationService(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceServer(cfg, port=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["infer", "image.png", "--crop-size", "33"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["serve", "--crop-size", "33", "--port", "0"])
 
 
 def test_kernel_never_stands_in_for_the_plain_version_on_cpu(rng):
@@ -111,11 +124,28 @@ def test_config_reads_the_jax_json():
     assert classes.seen_classes(21, (10, 14)) == jax_classes.seen_classes(21, (10, 14))
 
 
-def test_fused_tail_is_refused():
+def test_fused_tail_builds_and_never_launches_k4_on_cpu(rng):
     from zs3_tpu_torch.models.deeplab import build_deeplab
+    from zs3_tpu_torch.ops import tail_kernels
 
-    with pytest.raises(NotImplementedError, match="K4"):
-        build_deeplab(config.ModelConfig(fused_tail=True))
+    model = build_deeplab(config.ModelConfig(
+        backbone="resnet50", num_classes=4, compute_dtype="float32", fused_tail=True,
+        dropout=False,
+    )).eval()
+    assert model.fused_tail
+    x = torch.from_numpy(rng.standard_normal((1, 33, 33, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.standard_normal((1, 9, 9, 8)).astype(np.float32))
+    w, b = torch.ones((8, 4)), torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tail_kernels.classify_resize(feats, w, b, (33, 33))
+    with torch.no_grad():
+        out = model(x)
+    np.testing.assert_array_equal(
+        tail_kernels.tail_logits(feats, w, b, (33, 33)).numpy(),
+        tail_kernels.classify_resize_reference(feats, w, b, (33, 33)).numpy(),
+    )
+    assert out.shape == (1, 33, 33, 4) and out.dtype == torch.float32
+    assert tail_kernels.classify_resize.launches == 0
 
 
 @pytest.mark.parametrize("crop", [65, 48])

@@ -5,14 +5,18 @@ arrays, with PIL doing the resampling exactly as zs3_tpu does: train is
 HFlip -> RandomScaleCrop -> GaussianBlur -> Normalize, val is
 FixScaleCrop -> Normalize (ImageNet mean/std).  Random transforms take an
 explicit np.random.Generator, so a sample's augmentation is a function of
-its seed, as in zs3_tpu.
+its seed, as in zs3_tpu.  The inference geometry (`letterbox_image`,
+`unletterbox_pred`) is copied too, and `batched_normalize_device`
+normalizes uint8 batches where they lie, on the card when serving.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 from PIL import Image, ImageFilter
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -131,3 +135,55 @@ def train_transform(
     sample = random_scale_crop(sample, rng, base_size, crop_size, fill)
     sample = random_gaussian_blur(sample, rng)
     return normalize(sample)
+
+
+def letterbox_image(image: np.ndarray, size: int) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Aspect-preserving resize onto a (size, size) canvas.
+
+    Scales the LONG side to `size` (so nothing is cropped, unlike
+    fix_scale_crop) and pads the short side — top-left anchored — with
+    ImageNet-mean pixels, which normalize to exactly zero.  Returns
+    (uint8 canvas, (content_h, content_w)); crop the prediction to the
+    content extent and resize back to undo (see unletterbox_pred).
+    """
+    h, w = image.shape[:2]
+    scale = size / float(max(h, w))
+    ch = max(1, min(size, int(round(h * scale))))
+    cw = max(1, min(size, int(round(w * scale))))
+    resized = np.asarray(
+        Image.fromarray(image.astype(np.uint8)).resize((cw, ch), Image.BILINEAR),
+        dtype=np.uint8,
+    )
+    canvas = np.empty((size, size, 3), np.uint8)
+    canvas[:] = np.round(IMAGENET_MEAN * 255.0).astype(np.uint8)
+    canvas[:ch, :cw] = resized
+    return canvas, (ch, cw)
+
+
+def unletterbox_pred(
+    pred: np.ndarray, content_hw: Tuple[int, int], out_hw: Tuple[int, int]
+) -> np.ndarray:
+    """Undo letterbox_image on a (size, size) label map: crop the valid
+    content region and NEAREST-resize to the native resolution."""
+    ch, cw = content_hw
+    h, w = out_hw
+    return np.asarray(
+        Image.fromarray(pred[:ch, :cw].astype(np.uint8), mode="L").resize(
+            (w, h), Image.NEAREST
+        )
+    ).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _mean_std(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IMAGENET_MEAN/STD on `device`, uploaded once (outside inference mode)."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(IMAGENET_MEAN).to(device),
+                torch.from_numpy(IMAGENET_STD).to(device))
+
+
+def batched_normalize_device(images: torch.Tensor) -> torch.Tensor:
+    """uint8/float NHWC on any device -> normalized float32 NHWC there."""
+    img = images.to(torch.float32) / 255.0
+    mean, std = _mean_std(img.device)
+    return (img - mean) / std

@@ -6,7 +6,9 @@ backbone -> ASPP -> decoder -> bilinear upsample to input resolution
 pre-logit pixel embedding is a first-class output.  Methods take and
 return NHWC tensors, as in zs3_tpu:
 
-  forward(x)             -> f32 logits at input resolution (N,H,W,C)
+  forward(x)             -> f32 logits at input resolution (N,H,W,C);
+                            with fused_tail, in eval mode and at the exact
+                            4x geometry, through kernel K4 (ops/tail_kernels.py)
   forward_features(x)    -> 256-d pixel embedding at the os4 grid
   classify(feats)        -> logits at the feature grid
   upsample_logits(l, s)  -> align-corners bilinear to size s
@@ -29,6 +31,7 @@ from zs3_tpu_torch.models.aspp import ASPP
 from zs3_tpu_torch.models.decoder import Decoder
 from zs3_tpu_torch.models.layers import BatchNorm, Conv
 from zs3_tpu_torch.models.resnet import ResNetAtrous
+from zs3_tpu_torch.ops import tail_kernels
 from zs3_tpu_torch.ops.resize import resize_bilinear
 
 RESNET_LAYERS = {
@@ -51,8 +54,10 @@ class DeepLab(nn.Module):
         dropout: bool = True,
         dtype: torch.dtype = torch.float32,
         layers: Optional[Sequence[int]] = None,
+        fused_tail: bool = False,
     ):
         super().__init__()
+        self.fused_tail = fused_tail
         if layers is None:
             if backbone not in RESNET_LAYERS:
                 raise NotImplementedError(
@@ -96,7 +101,16 @@ class DeepLab(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = tuple(x.shape[1:3])
-        logits = self.classify(self.forward_features(x))
+        feats = self.forward_features(x)
+        if (
+            self.fused_tail
+            and not self.training
+            and tail_kernels.supported(tuple(feats.shape[1:3]), size, self.num_classes)
+        ):
+            conv = self.classifier  # (K, C, 1, 1) -> (C, K)
+            w = conv.weight.detach()[:, :, 0, 0].t()
+            return tail_kernels.tail_logits(feats, w, conv.bias.detach(), size).float()
+        logits = self.classify(feats)
         # Upsample in the compute dtype, output f32 (as zs3_tpu does).
         return self.upsample_logits(logits, size).float()
 
@@ -104,11 +118,6 @@ class DeepLab(nn.Module):
 def build_deeplab(cfg: ModelConfig) -> DeepLab:
     """DeepLab for `cfg` on the CPU with default-initialised weights
     (see init_deeplab for the seeded init)."""
-    if cfg.fused_tail:
-        raise NotImplementedError(
-            "fused_tail=True needs kernel K4 (zs3_tpu/ops/pallas_tail.py), "
-            "which is not ported yet"
-        )
     return DeepLab(
         backbone=cfg.backbone,
         output_stride=cfg.output_stride,
@@ -119,6 +128,7 @@ def build_deeplab(cfg: ModelConfig) -> DeepLab:
         bn_epsilon=cfg.bn_epsilon,
         dropout=cfg.dropout,
         dtype=getattr(torch, cfg.compute_dtype),
+        fused_tail=cfg.fused_tail,
     )
 
 

@@ -14,7 +14,8 @@ Per batch, with the seen-class trunk frozen (SURVEY.md §3.3):
 The MMD runs on `KernelSum` (kernels K2/K3, ops/mmd_kernels.py) on the
 GPU, and on their plain versions on the CPU.  Validation
 splices the retrained classifier into the trunk and reports
-seen/unseen/harmonic mIoU through the eval step (kernel K1).
+seen/unseen/harmonic mIoU through the eval step (kernel K1), or the
+ms+flip TTA step when `train.eval_scales`/`eval_flip` ask for it.
 Checkpoint writes, `gmmn_resume` and the metric logger come with the
 saver slice.
 """
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from zs3_tpu_torch.core.config import Config
+from zs3_tpu_torch.core.config import Config, TrainConfig
 from zs3_tpu_torch.core.device import resolve_device
 from zs3_tpu_torch.data.loader import make_data_loader
 from zs3_tpu_torch.metrics.evaluator import Evaluator
@@ -38,7 +39,7 @@ from zs3_tpu_torch.models.deeplab import DeepLab
 from zs3_tpu_torch.models.gmmn import GMMNGenerator, build_gmmn, init_gmmn
 from zs3_tpu_torch.ops.mmd_kernels import batched_kernel_mmd_loss
 from zs3_tpu_torch.ops.sampling import downsample_labels, draw_scores, sample_class_pixels
-from zs3_tpu_torch.train.seen import build_eval_model, device_batch, make_eval_step
+from zs3_tpu_torch.train.seen import build_eval_model, device_batch, select_eval_step
 
 Params = Dict[str, torch.Tensor]
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -220,10 +221,13 @@ class ZS3Step:
     __call__ = body
 
 
-def make_zs3_eval_step(num_classes: int, ignore_index: int = 255):
+def make_zs3_eval_step(
+    num_classes: int, ignore_index: int = 255, train_cfg: TrainConfig = TrainConfig()
+):
     """eval_step(model, cls_params, batch) -> (C, C) confusion: splice the
-    classifier, then the eval step (features, classify, K1, confusion)."""
-    eval_step = make_eval_step(num_classes, ignore_index)
+    classifier, then the eval step `train_cfg` selects (features,
+    classify, K1, confusion; or ms+flip TTA)."""
+    eval_step = select_eval_step(num_classes, ignore_index, train_cfg)
 
     def zs3_eval_step(model: DeepLab, cls_params: Params, batch) -> torch.Tensor:
         return eval_step(splice_classifier(model, cls_params), batch)
@@ -237,9 +241,7 @@ def refuse_unported(cfg: Config):
         "gmmn.graph_context": cfg.gmmn.graph_context,
         "train.int8_features": cfg.train.int8_features,
         "data.device_preprocess": cfg.data.device_preprocess,
-        "train.eval_scales/eval_flip (TTA)": (
-            tuple(cfg.train.eval_scales) != (1.0,) or cfg.train.eval_flip
-        ),
+        "train.int8_eval": cfg.train.int8_eval,
         "train.gmmn_resume": bool(cfg.train.gmmn_resume),
     }
     bad = [name for name, on in unported.items() if on]
@@ -308,7 +310,7 @@ class GMMNTrainer:
             self.model, self.generator, extract_classifier(self.model),
             self.embeddings, unseen_mask.to(device), cfg, seed=cfg.train.seed + 2,
         )
-        self.eval_fn = make_zs3_eval_step(num_classes, cfg.data.ignore_index)
+        self.eval_fn = make_zs3_eval_step(num_classes, cfg.data.ignore_index, cfg.train)
         self.steps_per_epoch = cfg.train.steps_per_epoch or len(self.train_loader)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
