@@ -6,10 +6,11 @@ Builds every hand-written kernel of the port from zs3_tpu_torch/csrc
 (one nvcc per source, all at once) and holds each against its plain
 PyTorch version on the card: K1 (upsample+argmax), K2 and K3 (the MMD's
 kernel sums and their gradient), K4 (the fused classify+upsample tail),
-and the space-to-batch dilated conv against cuDNN's.  Then it drives the
-port's paths at full width (DeepLabv3+ ResNet-101, os16, 513x513, bf16,
-synthetic data, unseen split 2), each with the launch counts set to 0
-just before and read just after:
+K5 (the fused eval-mode bottleneck), and the space-to-batch dilated conv
+against cuDNN's.  Then it drives the port's paths at full width
+(DeepLabv3+ ResNet-101, os16, 513x513, bf16, synthetic data, unseen
+split 2), each with the launch counts set to 0 just before and read
+just after:
 
   * `evaluate` (eval batch 4): one K1 launch per eval batch;
   * `train-gmmn` (train batch 8, 128 pixels per class, 4 steps, then one
@@ -23,11 +24,19 @@ just before and read just after:
     per batch of sliding windows;
   * `infer --fused-tail` on 8 PNG files, plain and with --sliding;
   * `evaluate --fused-tail --eval-flip --eval-scales 0.75,1.0` (ms+flip
-    TTA): one K4 launch per view and eval batch.
+    TTA): one K4 launch per view and eval batch;
+  * `train-seen` (train batch 8, 4 steps, then one validation): one K1
+    launch per eval batch, a checkpoint and `best` written;
+  * the chained pipeline through the port's checkpoints: `train-gmmn
+    --resume <seen checkpoint> --no-val` (1 step), `evaluate-gmmn
+    --gmmn-resume <its checkpoint>`, `evaluate --resume <seen checkpoint>`;
+  * K5 over the 29 identity blocks of that trained trunk, reloaded from
+    its checkpoint, in eval mode at eval batch 4: one launch per block.
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
-size (ResNet-50, 65x65, f32).  Each phase prints one JSON line; a failed
+size (ResNet-50, 65x65, f32).  Checkpoints go to build/chip_smoke_run/,
+removed at the end.  Each phase prints one JSON line; a failed
 phase exits nonzero.  The line before the last is the kernel table, the
 last line is {"ok": true, "device": {...}}.  Needs one CUDA card;
 imports no JAX.
@@ -36,6 +45,7 @@ imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import http.client
 import io
@@ -55,7 +65,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock, the shortest sleep
-KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum", "classify_resize")
+KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum", "classify_resize", "fused_bottleneck")
 FULL_WIDTH = [
     "--dataset", "synthetic", "--backbone", "resnet101", "--out-stride", "16",
     "--crop-size", "513", "--base-size", "513", "--compute-dtype", "bfloat16",
@@ -67,11 +77,15 @@ SERVE_ARGS = ["serve", *FULL_WIDTH, "--fused-tail", "--serve-batch", str(SERVE_B
 TTA_ARGS = ["evaluate", *FULL_WIDTH, "--eval-batch-size", "4", "--unseen-split", "2",
             "--fused-tail", "--eval-flip", "--eval-scales", "0.75,1.0"]
 SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+# Checkpoints and metric logs of the training and evaluation commands.
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_run")
+CKPT_ARGS = ["--checkpoint-dir", CKPT_DIR, "--checkname", "chip-smoke"]
+TTA_ARGS += CKPT_ARGS
 SLICE_ARGS = [
     "evaluate", "--dataset", "synthetic", "--backbone", "resnet101",
     "--out-stride", "16", "--crop-size", "513", "--base-size", "513",
     "--eval-batch-size", "4", "--compute-dtype", "bfloat16",
-    "--unseen-split", "2", "--seed", "0", "--device", "cuda",
+    "--unseen-split", "2", "--seed", "0", "--device", "cuda", *CKPT_ARGS,
 ]
 ZS3_STEPS = 4
 ZS3_ARGS = [
@@ -79,7 +93,13 @@ ZS3_ARGS = [
     "--out-stride", "16", "--crop-size", "513", "--base-size", "513",
     "--batch-size", "8", "--eval-batch-size", "4", "--compute-dtype", "bfloat16",
     "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(ZS3_STEPS),
-    "--seed", "0", "--device", "cuda",
+    "--seed", "0", "--device", "cuda", *CKPT_ARGS,
+]
+SEEN_STEPS = 4
+SEEN_WINDOW = 20  # steps per timed window
+SEEN_ARGS = [
+    "train-seen", *FULL_WIDTH, "--batch-size", "8", "--eval-batch-size", "4",
+    "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(SEEN_STEPS), *CKPT_ARGS,
 ]
 MMD_BUDGETS = (128, 512, 2048)
 
@@ -230,16 +250,17 @@ def compare_labels(got, want, logits, size, phase, what, tol=None):
 
 def reset_counts():
     """Every kernel's launch count to 0."""
-    from zs3_tpu_torch.ops import eval_kernels, tail_kernels
+    from zs3_tpu_torch.ops import bottleneck_kernels, eval_kernels, tail_kernels
     from zs3_tpu_torch.ops import mmd_kernels as mk
 
     eval_kernels.upsample_argmax.launches = 0
     mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
     tail_kernels.classify_resize.launches = 0
+    bottleneck_kernels.fused_bottleneck.launches = 0
 
 
 def read_counts() -> dict:
-    from zs3_tpu_torch.ops import eval_kernels, tail_kernels
+    from zs3_tpu_torch.ops import bottleneck_kernels, eval_kernels, tail_kernels
     from zs3_tpu_torch.ops import mmd_kernels as mk
 
     return {
@@ -247,6 +268,7 @@ def read_counts() -> dict:
         "K2": mk.kernel_sum.launches,
         "K3": mk.kernel_sum_grad.launches,
         "K4": tail_kernels.classify_resize.launches,
+        "K5": bottleneck_kernels.fused_bottleneck.launches,
     }
 
 
@@ -463,6 +485,184 @@ def phase_tail():
     check(classify_resize.launches == before, "tail kernels", "a refused call counted")
     emit(phase="tail kernels", refused=sorted(refusals), ok=True)
     return timings
+
+
+K5_STAGES = (  # (layer, main-path input shape, planes): R101 os16 at 513x513, batch 4
+    ("layer1", (4, 129, 129, 256), 64),
+    ("layer2", (4, 65, 65, 512), 128),
+    ("layer3", (4, 33, 33, 1024), 256),
+    ("layer4", (4, 33, 33, 2048), 512),
+)
+
+
+def k5_bound(bsz, h, w, c, p, dtype):
+    """(least time in ms, "bytes" or "operations") for one K5 block: read
+    x, write out, read the weights once (biases in f32); 2 B H W (2 C P +
+    9 P^2) FLOPs at the dtype's peak."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    bytes_moved = 2 * bsz * h * w * c * size + (2 * c * p + 9 * p * p) * size + (2 * p + c) * 4
+    flops = 2 * bsz * h * w * (2 * c * p + 9 * p * p)
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / rate
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def unfused_block(x_nchw, w1, b1, w2, b2, w3, b3, d):
+    """The block as three cuDNN convolutions with the folded weights (the
+    library yardstick), NCHW channels_last in and out."""
+    import torch.nn.functional as F
+
+    dt = x_nchw.dtype
+    conv = lambda t, w, b, **kw: F.conv2d(t, w.to(dt), b.to(dt), **kw)
+    y = torch.relu(conv(x_nchw, w1.t()[:, :, None, None], b1))
+    y = torch.relu(conv(y, w2.permute(3, 2, 0, 1), b2, padding=d, dilation=d))
+    return torch.relu(conv(y, w3.t()[:, :, None, None], b3) + x_nchw)
+
+
+def phase_bottleneck(model=None, images=None):
+    """K5 on a trunk's identity blocks (layerN[1:] of R101: 29 blocks) in
+    eval mode, on the activations that enter them at eval batch 4 and
+    513x513.  Each block against the plain version on the same input (bf16:
+    within 4 bf16 ulps of the pixel's largest |output|; f32 with TF32 off:
+    within 1e-5 of the largest |output|) and against the trunk's own block
+    (cuDNN convs, BN, ReLU; bf16 within 2^-4 of the pixel's largest
+    |output|, f32 within 1e-4 of the block's), then the 29-launch pass of
+    the fused stages with the counts from 0, and times per stage shape."""
+    import copy
+
+    from zs3_tpu_torch.ops import bottleneck as plain
+    from zs3_tpu_torch.ops import bottleneck_kernels as k5
+
+    phase = "bottleneck kernels"
+    if model is None:  # a seeded trunk when run alone
+        from zs3_tpu_torch import cli
+        from zs3_tpu_torch.train.seen import build_eval_model
+
+        model = build_eval_model(cli.build_config(cli.make_parser().parse_args(SLICE_ARGS)),
+                                 "cuda")
+    if images is None:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        images = torch.randn((4, 513, 513, 3), device="cuda", generator=gen)
+    model.eval()
+    backbone = model.backbone
+    inputs, outputs = {}, {}
+
+    def keep(key):
+        def hook(module, args, out):
+            inputs[key], outputs[key] = args[0], out
+
+        return hook
+
+    hooks = []
+    for layer, _, _ in K5_STAGES:
+        for i, block in enumerate(getattr(backbone, layer)):
+            if i:
+                hooks.append(block.register_forward_hook(keep((layer, i))))
+    try:
+        with torch.inference_mode():
+            backbone(images.to(model.compute_dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    check(len(inputs) == 29, phase, f"{len(inputs)} identity blocks, expected 29")
+
+    rows, timings = [], {}
+    worst = {"bf16_plain_ulps": 0.0, "f32_plain": 0.0, "bf16_trunk": 0.0, "f32_trunk": 0.0}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for layer, shape, planes in K5_STAGES:
+                blocks = list(getattr(backbone, layer))[1:]
+                for i, block in enumerate(blocks, start=1):
+                    params = plain.fold_bottleneck(block)
+                    d = block.conv2.dilation[0]
+                    x_nchw = inputs[(layer, i)]
+                    x = x_nchw.permute(0, 2, 3, 1)  # NHWC view of channels_last memory
+                    check(tuple(x.shape) == shape and x.is_contiguous(), phase,
+                          f"{layer}[{i}] input {tuple(x.shape)}")
+                    got = k5.fused_bottleneck(x, *params, dilation=d).float()
+                    want = plain.fused_bottleneck(x, *params, dilation=d).float()
+                    trunk = outputs[(layer, i)].permute(0, 2, 3, 1).float()
+                    ulp = bf16_ulp(want.abs().amax(-1, keepdim=True))
+                    ulps = float(((got - want).abs() / ulp).max())
+                    bf16_abs = float((got - want).abs().max())
+                    trunk_rel = float(((got - trunk).abs()
+                                       / want.abs().amax(-1, keepdim=True).clamp(min=1e-6)).max())
+                    check(ulps <= 4, phase, f"{layer}[{i}] bf16: K5 {ulps} ulps off the plain")
+                    check(trunk_rel <= 2**-4, phase,
+                          f"{layer}[{i}] bf16: K5 off the trunk's block by {trunk_rel} of |out|")
+                    # f32 (TF32 off): the same block on the same input in f32.
+                    xf = x.float().contiguous()
+                    got32 = k5.fused_bottleneck(xf, *params, dilation=d)
+                    want32 = plain.fused_bottleneck(xf, *params, dilation=d)
+                    block32 = copy.deepcopy(block).float()
+                    for conv in (block32.conv1, block32.conv2, block32.conv3):
+                        conv.compute_dtype = torch.float32
+                    trunk32 = block32(xf.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                    scale = float(want32.abs().max())
+                    err32 = float((got32 - want32).abs().max())
+                    trunk32_err = float((got32 - trunk32).abs().max())
+                    check(err32 <= 1e-5 * scale, phase,
+                          f"{layer}[{i}] f32: K5 off the plain by {err32} (max |out| {scale})")
+                    check(trunk32_err <= 1e-4 * scale, phase,
+                          f"{layer}[{i}] f32: K5 off the trunk's block by {trunk32_err}")
+                    for key, v in (("bf16_plain_ulps", ulps), ("f32_plain", err32 / scale),
+                                   ("bf16_trunk", trunk_rel), ("f32_trunk", trunk32_err / scale)):
+                        worst[key] = max(worst[key], v)
+                    rows.append({"block": f"{layer}.{i}", "dilation": d, "bf16_plain_ulps": ulps,
+                                 "bf16_plain_abs": bf16_abs,
+                                 "bf16_trunk_rel": trunk_rel, "f32_plain_abs": err32,
+                                 "f32_trunk_abs": trunk32_err, "f32_max_abs_out": scale})
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    emit(phase=phase, check="per block, bf16 and f32", worst=worst,
+         bounds={"bf16_plain_ulps": 4, "f32_plain": 1e-5, "bf16_trunk": 2**-4,
+                 "f32_trunk": 1e-4}, blocks=rows)
+
+    # The main path: the fused stages over the trunk's identity blocks,
+    # counts from 0: one launch per block.
+    reset_counts()
+    with torch.inference_mode():
+        chained = {}
+        for layer, _, _ in K5_STAGES:
+            blocks = list(getattr(backbone, layer))[1:]
+            x = inputs[(layer, 1)].permute(0, 2, 3, 1)
+            out = k5.fused_stage(x, [plain.fold_bottleneck(b) for b in blocks],
+                                 [b.conv2.dilation[0] for b in blocks])
+            trunk = outputs[(layer, len(blocks))].permute(0, 2, 3, 1).float()
+            chained[layer] = float((out.float() - trunk).abs().max() / trunk.abs().max())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["K5"] == 29 and launches["K1"] == launches["K4"] == 0, phase,
+          f"launches {launches} for 29 identity blocks")
+    emit(phase=phase, check="fused stages over the trunk", launches=launches,
+         stage_err_over_max_out=chained)
+
+    # Times per stage shape: one identity block (the stage's first).
+    with torch.inference_mode():
+        for layer, shape, planes in K5_STAGES:
+            block = getattr(backbone, layer)[1]
+            params = plain.fold_bottleneck(block)
+            d = block.conv2.dilation[0]
+            x_nchw = inputs[(layer, 1)]
+            x = x_nchw.permute(0, 2, 3, 1)
+            row = {"shape": list(shape), "planes": planes, "dilation": d, "dtype": "bfloat16",
+                   "tile": k5.plan(shape, planes, d, x.dtype)}
+            row.update(zip(("bound_ms", "bound_by"), k5_bound(*shape, planes, x.dtype)))
+            row.update(
+                kernel_ms=time_ms(lambda: k5.fused_bottleneck(x, *params, dilation=d),
+                                  what=f"K5 {layer}"),
+                plain_ms=time_ms(lambda: plain.fused_bottleneck(x, *params, dilation=d),
+                                 reps=5, what=f"K5 plain {layer}"),
+                library_ms=time_ms(lambda: unfused_block(x_nchw, *params, d),
+                                   what=f"K5 library {layer}"),
+            )
+            timings[layer] = row
+            emit(phase=phase, stage=layer, **row)
+    errors = {"max_abs_err": max(r["bf16_plain_abs"] for r in rows),
+              "f32_max_abs_err": max(r["f32_plain_abs"] for r in rows), **worst}
+    return launches, errors, timings
 
 
 def phase_dilated():
@@ -728,7 +928,7 @@ def phase_serve():
     check(launches["K4"] == batcher.groups + window_batches, phase,
           f"K4 launched {launches['K4']} times for {batcher.groups} batched forwards "
           f"and {window_batches} batches of sliding windows")
-    check(launches["K1"] == launches["K2"] == launches["K3"] == 0, phase,
+    check(launches["K1"] == launches["K2"] == launches["K3"] == launches["K5"] == 0, phase,
           f"serving launched {launches}")
 
     # Requests/s over 4 windows of 16 consecutive completions.
@@ -799,7 +999,7 @@ def phase_infer():
         launches = read_counts()
         check(result["written"] == 16 and len(os.listdir(target)) == 16, phase,
               f"{mode}: wrote {result['written']} files, {len(os.listdir(target))} on disk")
-        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": want_k4}, phase,
+        check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": want_k4, "K5": 0}, phase,
               f"{mode}: launches {launches}, want K4 {want_k4}")
         out[mode] = {"written": result["written"], "launches": launches,
                      "wall_seconds_with_setup": time.time() - t0}
@@ -832,7 +1032,7 @@ def phase_tta():
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
-    check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": views * len(loader)}, phase,
+    check(launches == {"K1": 0, "K2": 0, "K3": 0, "K4": views * len(loader), "K5": 0}, phase,
           f"launches {launches} for {views} views x {len(loader)} eval batches")
     check(all(is_finite(v) for v in metrics.values()), phase, f"non-finite metrics {metrics}")
     model = build_eval_model(cfg, "cuda")
@@ -1152,7 +1352,7 @@ def phase_zs3():
     wall = time.time() - t0
     launches = read_counts()
     eval_batches = len(trainer.val_loader)
-    want = {"K1": eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS, "K4": 0}
+    want = {"K1": eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS, "K4": 0, "K5": 0}
     check(launches == want, phase,
           f"launches {launches} for {ZS3_STEPS} steps and {eval_batches} eval batches")
     check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
@@ -1307,6 +1507,270 @@ def phase_zs3_reference():
          grad_max_err_over_max_grad=worst, ok=True)
 
 
+def conv_fwd_bwd_ms(x, weight, dilation, space_to_batch):
+    """Device ms of one forward and backward (dgrad and wgrad) of a dilated
+    3x3 "same" conv, as cuDNN runs it or as space-to-batch."""
+    import torch.nn.functional as F
+
+    from zs3_tpu_torch.models.layers import conv2d_space_to_batch
+
+    x = x.detach().requires_grad_(True)
+    w = weight.detach().requires_grad_(True)
+
+    def fwd_bwd():
+        if space_to_batch:
+            y = conv2d_space_to_batch(x, w, None, dilation)
+        else:
+            y = F.conv2d(x, w, None, 1, dilation, dilation)
+        torch.autograd.grad(y.float().sum(), (x, w))
+
+    return time_ms(fwd_bwd, reps=3, rounds=3, what=f"conv d={dilation}")
+
+
+def phase_seen():
+    """`cli train-seen` at full width (train batch 8, loss at full
+    resolution, dropout on), 4 steps and one validation; then, on the
+    trainer it ran, its steps/s over 5 windows of 20 steps on batches on
+    the card, the host's ms per step, the device ms per step and the top
+    kernels, and the backward of the dilated convs of layer4 and the ASPP."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.train.seen import device_batch
+    from zs3_tpu_torch.utils.profiling import profile_device
+    from zs3_tpu_torch.utils.saver import Saver
+
+    phase = "seen slice"
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    reset_counts()
+    t0 = time.time()
+    result, trainer = cli.run(SEEN_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    eval_batches = len(trainer.val_loader)
+    check(launches == {"K1": eval_batches, "K2": 0, "K3": 0, "K4": 0, "K5": 0}, phase,
+          f"launches {launches} for {eval_batches} eval batches")
+    check(all(is_finite(v) for v in result.values()), phase, f"non-finite results {result}")
+    check(trainer.step == SEEN_STEPS, phase, f"{trainer.step} steps taken")
+    exp = trainer.saver.directory
+    ckpt = Saver.latest_checkpoint(exp)
+    check(os.path.basename(exp) == "experiment_0" and ckpt is not None
+          and Saver.best_checkpoint(exp) is not None, phase,
+          f"checkpoints in {exp}: {sorted(os.listdir(exp))}")
+    saved, live = Saver.restore(ckpt)["model"], trainer.model.state_dict()
+    check(saved.keys() == live.keys()
+          and all(torch.equal(saved[k], live[k].cpu()) for k in saved), phase,
+          "the checkpoint does not reload to the trained model's tensors")
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(SEEN_ARGS),
+         result=result, launches=launches, steps=SEEN_STEPS, eval_batches=eval_batches,
+         checkpoint=os.path.relpath(ckpt), checkpoint_mib=os.path.getsize(ckpt) / 2**20,
+         wall_seconds_with_setup=wall)
+
+    # Steps/s over batches on the card: 5 windows of 20 steps (host clock,
+    # each ending in a synchronize); the host's own ms per step and its syncs.
+    host_batches = [b for _, b in zip(range(SEEN_STEPS), trainer.train_loader)]
+    batches = [device_batch(b, trainer.device) for b in host_batches]
+    turn = itertools.cycle(batches)
+
+    def one_step():
+        return trainer.train_step(trainer.model, trainer.optimizer, next(turn))
+
+    losses = [float(one_step()["loss"]) for _ in batches]
+    check(all(is_finite(v) for v in losses), phase, f"non-finite losses {losses}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_per_sec, window_rates = rate_windows(one_step, calls=SEEN_WINDOW)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = host_syncs(one_step)
+    host_ms_per_step = host_ms(one_step, calls=11)
+    emit(phase=phase, step="timed windows, batches already on the card",
+         steps_per_window=SEEN_WINDOW, steps_per_sec=steps_per_sec,
+         steps_per_sec_windows=window_rates,
+         images_per_sec=steps_per_sec * batches[0]["image"].shape[0],
+         host_ms_per_step=host_ms_per_step, host_syncs_per_step=syncs, losses=losses,
+         peak_mem_gib=peak)
+
+    prof = profile_device(one_step, steps=4)
+    check(prof["device_busy_ms"] > 0, "seen profile", "the profiler saw no device time")
+    step_ms = prof["device_busy_ms"] / 4
+    bn_ms = sum(e["device_ms"] for e in prof["kernels"] if "batch_norm" in e["name"]) / 4
+    prof["kernels"], prof["ops"] = prof["kernels"][:15], prof["ops"][:15]
+
+    emit(phase="seen profile", device_ms_per_step=step_ms, batch_norm_device_ms_per_step=bn_ms,
+         host_ms_per_step=host_ms_per_step,
+         idle_share_untraced=1.0 - step_ms * steps_per_sec / 1e3,
+         dilated_conv_fwd_bwd_ms=dilated_backward_ms(), bn_fwd_bwd_ms=bn_train_ms(), **prof)
+    return launches, trainer, ckpt
+
+
+def dilated_backward_ms():
+    """The train step's dilated convs, forward + dgrad + wgrad in bf16 at
+    train batch 8: layer4's 3x3 512 -> 512 at d = 2, 4, 8 (cuDNN) and the
+    ASPP's 2048 -> 256 at d = 12, 18 (space-to-batch)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    make = lambda shape, scale: (torch.randn(shape, device="cuda", generator=gen) * scale).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x4, w4 = make((8, 512, 33, 33), 1.0), make((512, 512, 3, 3), 0.02)
+    xa, wa = make((8, 2048, 33, 33), 1.0), make((256, 2048, 3, 3), 0.02)
+    out = {f"layer4 d={d}": conv_fwd_bwd_ms(x4, w4, d, False) for d in (2, 4, 8)}
+    for d in (12, 18):
+        out[f"aspp d={d} space_to_batch"] = conv_fwd_bwd_ms(xa, wa, d, True)
+    return out
+
+
+def bn_train_ms():
+    """Train-mode BN forward + backward in bf16 at layer1's widest shape,
+    (8, 256, 129, 129) channels_last: the port's BatchNorm (flax's running
+    variance from the normalisation's saved statistics) against torch's
+    BatchNorm2d (cuDNN or native, unbiased running variance)."""
+    from zs3_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((8, 256, 129, 129), device="cuda", generator=gen).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    out = {}
+    for name, bn in (("port BatchNorm", BatchNorm(256)), ("torch BatchNorm2d",
+                                                          torch.nn.BatchNorm2d(256))):
+        bn = bn.cuda().train()
+
+        def fwd_bwd():
+            torch.autograd.grad(bn(x).float().sum(), (x, bn.weight))
+
+        out[name] = time_ms(fwd_bwd, reps=5, rounds=3, what=name)
+    return out
+
+
+def phase_chained(seen_ckpt):
+    """The pipeline through the port's checkpoints: `train-gmmn --resume
+    <seen checkpoint>` for one step with --no-val (it writes the -gmmn
+    checkpoint), `evaluate-gmmn --gmmn-resume <it>` and `evaluate --resume
+    <seen checkpoint>`; both checkpoints reload to bit-equal tensors."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.utils.saver import Saver
+
+    phase = "chained"
+    common = [*FULL_WIDTH, "--eval-batch-size", "4", "--unseen-split", "2", *CKPT_ARGS,
+              "--resume", seen_ckpt]
+    stages = {}
+
+    def same(a, b, what):
+        check(a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a),
+              phase, f"{what}: tensors differ")
+
+    def stage(name, argv, k1=True, k2=0, k3=0):
+        """cli.run(argv) with the counts from 0: the launches it must make
+        (K1 once per eval batch when k1), finite results, a checkpoint."""
+        reset_counts()
+        t0 = time.time()
+        result, trainer = cli.run(argv)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = {"K1": len(trainer.val_loader) if k1 else 0, "K2": k2, "K3": k3, "K4": 0, "K5": 0}
+        check(launches == want, phase, f"{name}: launches {launches}, want {want}")
+        check(all(is_finite(v) for v in result.values()), phase, f"{name}: {result}")
+        ckpt = Saver.latest_checkpoint(trainer.saver.directory)
+        check(ckpt is not None, phase, f"{name} wrote no checkpoint")
+        stages[name] = {"result": result, "launches": launches, "checkpoint": os.path.relpath(ckpt),
+                        "wall_seconds_with_setup": time.time() - t0}
+        return trainer, ckpt
+
+    trainer, gmmn_ckpt = stage("train-gmmn", ["train-gmmn", *common, "--batch-size", "8",
+                                              "--epochs", "1", "--steps-per-epoch", "1",
+                                              "--no-val"], k1=False, k2=3, k3=2)
+    gmmn = Saver.restore(gmmn_ckpt)
+    same(gmmn["gen"], trainer.generator.state_dict(), "gmmn checkpoint: generator")
+    same(gmmn["cls"], {k: v.detach() for k, v in trainer.step.cls.items()},
+         "gmmn checkpoint: classifier")
+    del trainer
+    trainer, _ = stage("evaluate-gmmn", ["evaluate-gmmn", *common, "--gmmn-resume", gmmn_ckpt])
+    same(gmmn["gen"], trainer.generator.state_dict(), "evaluate-gmmn's generator")
+    check(trainer.global_step == gmmn["step"] == 1, phase, "evaluate-gmmn's step")
+    del trainer
+    trainer, _ = stage("evaluate", ["evaluate", *common])
+    same(Saver.restore(seen_ckpt)["model"], trainer.model.state_dict(), "evaluate's model")
+    check(trainer.step == SEEN_STEPS, phase, f"evaluate resumed at step {trainer.step}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase=phase, seen_checkpoint=os.path.relpath(seen_ckpt), stages=stages, ok=True)
+
+
+def to_f64(trainer):
+    """The trainer's model in f64: parameters, statistics and compute."""
+    trainer.model.double()
+    for module in trainer.model.modules():
+        if hasattr(module, "compute_dtype"):
+            module.compute_dtype = torch.float64
+    return trainer
+
+
+def phase_seen_reference():
+    """One train-seen step on the card against the same step on the CPU:
+    ResNet-50 at 65x65, dropout off, the same seeded weights and batch.  In
+    f64 on both, where rounding cannot hide a wrong gradient: the loss to
+    rtol 1e-10, each gradient within 1e-7 of its max |g|, the updated
+    parameters and the BN running statistics within 1e-9.  Train-mode BN
+    over the few pixels of layer4 (5x5 a channel and image) amplifies
+    rounding, so in f32 (TF32 off) the deep gradients of either device
+    differ from the f64 ones by percents; those errors are reported, and
+    the f32 loss held to rtol 1e-4."""
+    import dataclasses
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.train.seen import SeenTrainer, device_batch
+
+    phase = "seen reference"
+    args = ["train-seen", "--dataset", "synthetic", "--backbone", "resnet50", "--crop-size", "65",
+            "--base-size", "65", "--batch-size", "8", "--compute-dtype", "float32",
+            "--unseen-split", "2", *CKPT_ARGS]
+    cfg = cli.build_config(cli.make_parser().parse_args(args))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=False))
+    steps = {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, device, f64 in (("cpu64", "cpu", True), ("card64", "cuda", True),
+                                  ("cpu32", "cpu", False), ("card32", "cuda", False)):
+            trainer = SeenTrainer(cfg, device)
+            if f64:
+                to_f64(trainer)
+            batch = device_batch(next(iter(trainer.train_loader)), trainer.device)
+            if f64:
+                batch["image"] = batch["image"].double()
+            out = trainer.train_step(trainer.model, trainer.optimizer, batch)
+            torch.cuda.synchronize()
+            steps[name] = (float(out["loss"]), trainer.model)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+    def errors(name):
+        """(loss, max gradient error over max |g|, updated params where
+        |g| > 1e-3 max|g|, BN statistics) of a step against the CPU's f64."""
+        loss, model = steps[name]
+        ref_loss, ref = steps["cpu64"]
+        got = dict(model.named_parameters())
+        grad = param = 0.0
+        for pname, p64 in ref.named_parameters():
+            g64, p = p64.grad, got[pname]
+            scale = float(g64.abs().max())
+            grad = max(grad, float((p.grad.cpu().double() - g64).abs().max()) / scale)
+            big = g64.abs() > 1e-3 * scale
+            if big.any():
+                param = max(param, float(
+                    (p.detach().cpu().double()[big] - p64.detach()[big]).abs().max()))
+        buffers = dict(model.named_buffers())
+        bn = max(float((buffers[b].cpu().double() - v).abs().max())
+                 for b, v in ref.named_buffers() if b.endswith(("running_mean", "running_var")))
+        return {"loss": abs(loss - ref_loss), "grad": grad, "param": param, "bn": bn}
+
+    card64, cpu32, card32 = errors("card64"), errors("cpu32"), errors("card32")
+    loss64 = steps["cpu64"][0]
+    check(card64["loss"] <= 1e-10 * abs(loss64) and card64["grad"] <= 1e-7
+          and card64["param"] <= 1e-9 and card64["bn"] <= 1e-9, phase,
+          f"f64: the card's step is off the CPU's by {card64}")
+    check(card32["loss"] <= 1e-4 * abs(loss64), phase, f"f32: the card's loss off by {card32}")
+    emit(phase=phase, loss_f64=loss64, card_f64_vs_cpu_f64=card64,
+         card_f32_vs_cpu_f64=card32, cpu_f32_vs_cpu_f64=cpu32, ok=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1314,6 +1778,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import zs3_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from zs3_tpu_torch.train.seen import build_eval_model, device_batch
 
     phase_env()
     phase_build()
@@ -1326,9 +1791,24 @@ def main() -> int:
     serve_launches = phase_serve()
     infer_launches = phase_infer()
     tta_launches = phase_tta()
+    seen_launches, seen, seen_ckpt = phase_seen()
+    images = device_batch(next(iter(seen.val_loader)), torch.device("cuda"))["image"]
+    trunk_cfg = seen.cfg.replace(train=dataclasses.replace(seen.cfg.train, resume=seen_ckpt))
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_chained(seen_ckpt)
+    # K5 on the trunk train-seen trained and wrote, reloaded from its checkpoint.
+    k5_launches, k5_errors, k5_timings = phase_bottleneck(build_eval_model(trunk_cfg, "cuda"),
+                                                          images)
+    del images
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_reference()
     phase_zs3_reference()
     phase_serve_reference()
+    phase_seen_reference()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     b4, b16 = timings[4], timings[16]
     k4 = tail_timings[(SERVE_BATCH, "bfloat16")]
     k4_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
@@ -1389,6 +1869,20 @@ def main() -> int:
             "dtype": "bfloat16",
             "b1": {f: tail_timings[(1, "bfloat16")][f] for f in k4_fields},
             "b8_f32": {f: tail_timings[(SERVE_BATCH, "float32")][f] for f in k4_fields},
+        },
+        {
+            "name": "fused_bottleneck",
+            "route": "cuda",
+            "source": "zs3_tpu_torch/csrc/fused_bottleneck.cu",
+            "replaces": "zs3_tpu/ops/pallas_bottleneck.py:64",
+            "launches": k5_launches["K5"],
+            "launches_train_seen": seen_launches["K5"],
+            "max_abs_err": k5_errors["max_abs_err"],
+            "errors": k5_errors,
+            **{f: k5_timings["layer3"][f] for f in ("bound_ms", "bound_by", "plain_ms",
+                                                   "library_ms", "shape", "dtype")},
+            "ms": k5_timings["layer3"]["kernel_ms"],
+            "stages": k5_timings,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -276,9 +276,10 @@ TINY = ["--dataset", "synthetic", "--crop-size", "33", "--base-size", "33",
         "--steps-per-epoch", "2", "--pixels-per-class", "16"]
 
 
-def test_cli_train_gmmn_on_cpu(capsys):
+def test_cli_train_gmmn_on_cpu(capsys, tmp_path):
     with pytest.warns(UserWarning, match="randomly initialised"):
-        assert cli.main(["train-gmmn", *TINY, "--device", "cpu"]) == 0
+        assert cli.main(["train-gmmn", *TINY, "--device", "cpu",
+                         "--checkpoint-dir", str(tmp_path)]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert {"mmd", "cls_ce", "seen_miou", "unseen_miou", "harmonic_miou"} <= out.keys()
     assert all(np.isfinite(v) for v in out.values())
@@ -287,9 +288,10 @@ def test_cli_train_gmmn_on_cpu(capsys):
     assert mmd_kernels.kernel_sum_grad.launches == 0
 
 
-def test_cli_train_gmmn_no_val(capsys):
+def test_cli_train_gmmn_no_val(capsys, tmp_path):
     with pytest.warns(UserWarning):
-        assert cli.main(["train-gmmn", *TINY, "--no-val", "--device", "cpu"]) == 0
+        assert cli.main(["train-gmmn", *TINY, "--no-val", "--device", "cpu",
+                         "--checkpoint-dir", str(tmp_path)]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) == {"epoch", "mmd", "cls_ce", "epoch_seconds"}
 
@@ -309,11 +311,12 @@ def test_train_gmmn_defaults_to_the_gpu():
     ("data", "device_preprocess", True),
     ("train", "int8_eval", True),     # TTA (eval_scales/eval_flip) is ported now
     ("data", "dataset", "context"),
-    ("train", "gmmn_resume", "ckpt"),
+    ("model", "backbone", "xception"),  # gmmn_resume is ported now
 ])
 def test_trainer_refuses_unported_settings(change):
     node, field, value = change
     cfg = Config()
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset="synthetic"))
     cfg = cfg.replace(**{node: dataclasses.replace(getattr(cfg, node), **{field: value})})
     with pytest.raises(NotImplementedError, match=field.split("_")[0]):
         gmmn.GMMNTrainer(cfg, device="cpu")
@@ -378,7 +381,8 @@ def test_cli_train_gmmn_embedding_path(tmp_path, rng):
     path = _embedding_files(tmp_path, rng)["npz"]
     with pytest.warns(UserWarning, match="randomly initialised"):
         result, trainer = cli.run(["train-gmmn", *TINY, "--steps-per-epoch", "1",
-                                   "--no-val", "--embedding-path", path, "--device", "cpu"])
+                                   "--no-val", "--embedding-path", path, "--device", "cpu",
+                                   "--checkpoint-dir", str(tmp_path)])
     np.testing.assert_array_equal(
         trainer.embeddings.numpy(), jax_load_class_embeddings(NAMES, path, 300)
     )

@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("train.seen", "train.gmmn", "ops.mmd", "ops.mmd_kernels", "ops.sampling",
                  "models.gmmn", "data.embeddings", "cli", "ops.tail_kernels",
-                 "train.predict", "serve", "metrics.tta", "utils.viz"):
+                 "train.predict", "serve", "metrics.tta", "utils.viz", "train.state",
+                 "utils.saver", "utils.schedules", "utils.losses", "utils.logging",
+                 "ops.bottleneck", "ops.bottleneck_kernels"):
         assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 
@@ -69,7 +71,7 @@ def test_entry_points_default_to_the_gpu(no_gpu):
     from zs3_tpu_torch.data.loader import make_val_loader
     from zs3_tpu_torch.serve import InferenceServer, SegmentationService
     from zs3_tpu_torch.train.predict import Predictor
-    from zs3_tpu_torch.train.seen import build_eval_model, evaluate, validate
+    from zs3_tpu_torch.train.seen import SeenTrainer, build_eval_model, evaluate, validate
 
     cfg = _tiny_cfg()
     with pytest.raises(RuntimeError, match="cuda"):
@@ -92,6 +94,12 @@ def test_entry_points_default_to_the_gpu(no_gpu):
         cli.main(["infer", "image.png", "--crop-size", "33"])
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["serve", "--crop-size", "33", "--port", "0"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        SeenTrainer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["train-seen", "--dataset", "synthetic", "--crop-size", "33"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["evaluate-gmmn", "--dataset", "synthetic", "--crop-size", "33"])
 
 
 def test_kernel_never_stands_in_for_the_plain_version_on_cpu(rng):

@@ -82,7 +82,7 @@ def test_eval_step_and_validate_match(slice_pair):
     assert eval_kernels.upsample_argmax.launches == 0
 
 
-def test_cli_evaluate_on_cpu(capsys):
+def test_cli_evaluate_on_cpu(capsys, tmp_path):
     import json
 
     from zs3_tpu_torch import cli
@@ -90,7 +90,7 @@ def test_cli_evaluate_on_cpu(capsys):
     assert cli.main([
         "evaluate", "--dataset", "synthetic", "--crop-size", "33", "--backbone",
         "resnet50", "--compute-dtype", "float32", "--unseen-split", "2",
-        "--eval-batch-size", "8", "--device", "cpu",
+        "--eval-batch-size", "8", "--device", "cpu", "--checkpoint-dir", str(tmp_path),
     ]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert {"miou", "seen_miou", "unseen_miou", "harmonic_miou"} <= out.keys()

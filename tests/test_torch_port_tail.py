@@ -189,7 +189,8 @@ def r50_tta(tmp_path_factory):
     path = tmp_path_factory.mktemp("r50") / "r50.pt"
     torch.save(state_dict_from_flax(variables), path)
     cfg = Config.from_json(jcfg.to_json())
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, resume=str(path)))
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, resume=str(path), checkpoint_dir=str(tmp_path_factory.mktemp("run"))))
     state = state.replace(params=variables["params"], batch_stats=variables["batch_stats"])
     return jcfg, jmodel, state, variables, cfg
 

@@ -1,13 +1,16 @@
 """Command line of the port (the ported subcommands of zs3_tpu.cli).
 
-    python -m zs3_tpu_torch.cli evaluate --dataset synthetic --unseen-split 2
-    python -m zs3_tpu_torch.cli train-gmmn --dataset synthetic --unseen-split 2
+    python -m zs3_tpu_torch.cli train-seen --dataset synthetic --unseen-split 2
+    python -m zs3_tpu_torch.cli evaluate --dataset synthetic --unseen-split 2 --resume CKPT
+    python -m zs3_tpu_torch.cli train-gmmn --dataset synthetic --unseen-split 2 --resume CKPT
+    python -m zs3_tpu_torch.cli evaluate-gmmn --unseen-split 2 --resume CKPT --gmmn-resume CKPT
     python -m zs3_tpu_torch.cli infer img1.png img2.jpg --output preds --fused-tail
     python -m zs3_tpu_torch.cli serve --port 8500 --serve-batch 8 --fused-tail
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
-the GPU unless --device cpu is given.
+the GPU unless --device cpu is given.  Checkpoints go to
+<checkpoint-dir>/<dataset>/<checkname>[-gmmn]/experiment_N/.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--eval-batch-size", type=int)
     p.add_argument("--seed", type=int)
     p.add_argument("--resume", type=str,
-                   help="state_dict .pt in the port's naming "
-                        "(default: seeded random init)")
+                   help="train-seen checkpoint, or a state_dict .pt in the port's "
+                        "naming (default: seeded random init)")
     p.add_argument("--unseen-split", type=int, choices=[0, 2, 4, 6, 8, 10],
                    help="number of unseen classes (paper protocol)")
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"])
@@ -50,12 +53,40 @@ def _add_common(p: argparse.ArgumentParser):
                         "PyTorch path)")
 
 
-def _add_train_gmmn(p: argparse.ArgumentParser):
+def _add_checkpoints(p: argparse.ArgumentParser):
+    p.add_argument("--checkname", type=str)
+    p.add_argument("--checkpoint-dir", type=str)
+    p.add_argument("--ft", action="store_true", default=None,
+                   help="fine-tune: load weights only, fresh optimizer and step")
+    p.add_argument("--gmmn-resume", type=str,
+                   help="GMMN-stage checkpoint to resume or evaluate")
+    p.add_argument("--auto-resume", action="store_true", default=None,
+                   help="resume from the newest checkpoint of the newest experiment "
+                        "of this (dataset, checkname), if any")
+
+
+def _add_schedule(p: argparse.ArgumentParser):
     p.add_argument("--epochs", type=int)
     p.add_argument("--steps-per-epoch", type=int)
     p.add_argument("--eval-interval", type=int)
     p.add_argument("--no-val", action="store_true", default=None,
-                   help="never validate")
+                   help="never validate (the final state is still saved)")
+
+
+def _add_train_seen(p: argparse.ArgumentParser):
+    p.add_argument("--lr", type=float)
+    p.add_argument("--lr-scheduler", choices=["poly", "step", "cos", "const"])
+    p.add_argument("--nesterov", action="store_true", default=None)
+    p.add_argument("--loss-type", choices=["ce", "focal"])
+    p.add_argument("--use-balanced-weights", action="store_true", default=None)
+    p.add_argument("--grad-accum", type=int,
+                   help="microbatches per optimizer step: batch-size stays the "
+                        "effective batch")
+    p.add_argument("--qat", action="store_true", default=None,
+                   help="quantization-aware training (not ported yet; refused)")
+
+
+def _add_gmmn(p: argparse.ArgumentParser):
     p.add_argument("--pixels-per-class", type=int,
                    help="per-class pixel budget of the generator step")
     p.add_argument("--embedding-path", type=str,
@@ -134,10 +165,24 @@ def build_config(args: argparse.Namespace) -> Config:
             unseen_classes=unseen,
             embedding_path=flag("embedding_path"),
         ),
+        optim=upd(
+            cfg.optim,
+            lr=flag("lr"),
+            loss_type=flag("loss_type"),
+            use_balanced_weights=flag("use_balanced_weights"),
+            schedule=flag("lr_scheduler"),
+            nesterov=flag("nesterov"),
+        ),
         train=upd(
             cfg.train,
             seed=args.seed,
             resume=args.resume,
+            gmmn_resume=flag("gmmn_resume"),
+            finetune=flag("ft"),
+            checkname=flag("checkname"),
+            checkpoint_dir=flag("checkpoint_dir"),
+            grad_accum=flag("grad_accum"),
+            qat=flag("qat"),
             epochs=flag("epochs"),
             steps_per_epoch=flag("steps_per_epoch"),
             eval_interval=eval_interval,
@@ -157,12 +202,25 @@ def make_parser() -> argparse.ArgumentParser:
         description="zero-shot semantic segmentation, PyTorch/CUDA port",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+    seen = sub.add_parser("train-seen")
+    _add_common(seen)
+    _add_checkpoints(seen)
+    _add_schedule(seen)
+    _add_train_seen(seen)
     evaluate = sub.add_parser("evaluate")
     _add_common(evaluate)
+    _add_checkpoints(evaluate)
     _add_int8(evaluate)
     gmmn = sub.add_parser("train-gmmn")
     _add_common(gmmn)
-    _add_train_gmmn(gmmn)
+    _add_checkpoints(gmmn)
+    _add_schedule(gmmn)
+    _add_gmmn(gmmn)
+    evaluate_gmmn = sub.add_parser("evaluate-gmmn")
+    _add_common(evaluate_gmmn)
+    _add_checkpoints(evaluate_gmmn)
+    _add_gmmn(evaluate_gmmn)
+    _add_int8(evaluate_gmmn)
     infer = sub.add_parser("infer")
     _add_common(infer)
     _add_int8(infer)
@@ -174,12 +232,34 @@ def make_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def auto_resume(cfg: Config, command: str) -> Config:
+    """cfg resuming from the newest checkpoint of the newest experiment of
+    this stage, when there is one and no checkpoint is named.  Each stage
+    saves under its own checkname (<checkname> for seen training and
+    evaluation, <checkname>-gmmn for the GMMN stage), so a stage never
+    restores another's state."""
+    from zs3_tpu_torch.utils.saver import Saver
+
+    gmmn_stage = command in ("train-gmmn", "evaluate-gmmn")
+    field = "gmmn_resume" if gmmn_stage else "resume"
+    exp = Saver.latest_experiment(cfg.train.checkpoint_dir, cfg.data.dataset,
+                                  cfg.train.checkname + ("-gmmn" if gmmn_stage else ""))
+    if exp and not getattr(cfg.train, field):
+        ckpt = Saver.latest_checkpoint(exp)
+        print(f"auto-resume: {ckpt}", file=sys.stderr)
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **{field: ckpt}))
+    return cfg
+
+
 def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     """Run one command without printing: (its result, the object it ran:
-    the GMMNTrainer of `train-gmmn`, the Predictor of `infer`, the
-    InferenceServer of `serve` once it stops, None for `evaluate`)."""
+    the SeenTrainer of `train-seen` and `evaluate`, the GMMNTrainer of
+    `train-gmmn` and `evaluate-gmmn`, the Predictor of `infer`, the
+    InferenceServer of `serve` once it stops)."""
     args = make_parser().parse_args(argv)
     cfg = build_config(args)
+    if getattr(args, "auto_resume", None):
+        cfg = auto_resume(cfg, args.command)
     if getattr(args, "int8", False):
         raise SystemExit(f"{args.command} --int8: int8 inference is not ported yet "
                          "(ROADMAP Queue 1 item 10)")
@@ -187,14 +267,19 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
         raise SystemExit("serve --artifact: exported artifacts are not ported yet "
                          "(ROADMAP Queue 1 item 11)")
 
-    if args.command == "evaluate":
-        from zs3_tpu_torch.train.seen import evaluate
+    if args.command in ("train-seen", "evaluate"):
+        from zs3_tpu_torch.train.seen import SeenTrainer
 
-        return evaluate(cfg, device=args.device), None
-    if args.command == "train-gmmn":
+        trainer = SeenTrainer(cfg, device=args.device)
+        if args.command == "evaluate":
+            return trainer.validate(epoch=0), trainer
+        return trainer.fit(), trainer
+    if args.command in ("train-gmmn", "evaluate-gmmn"):
         from zs3_tpu_torch.train.gmmn import GMMNTrainer
 
         trainer = GMMNTrainer(cfg, device=args.device)
+        if args.command == "evaluate-gmmn":
+            return trainer.validate(epoch=0), trainer
         return trainer.fit(), trainer
     if args.command == "infer":
         from zs3_tpu_torch.train.predict import Predictor

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from zs3_tpu_torch.models.layers import ConvBN, global_avg_pool, to_nchw, to_nhwc
+from zs3_tpu_torch.models.layers import ConvBN, Dropout, global_avg_pool, to_nchw, to_nhwc
 
 
 def aspp_dilations(output_stride: int):
@@ -45,7 +45,7 @@ class ASPP(nn.Module):
             )
         self.global_pool = ConvBN(in_channels, features, 1, **bn_kw)
         self.project = ConvBN(5 * features, features, 1, **bn_kw)
-        self.dropout = nn.Dropout(0.5) if dropout else nn.Identity()
+        self.dropout = Dropout(0.5) if dropout else nn.Identity()
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         branches = [

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from zs3_tpu_torch.models.layers import Conv, ConvBN, to_nchw, to_nhwc
+from zs3_tpu_torch.models.layers import Conv, ConvBN, Dropout, to_nchw, to_nhwc
 from zs3_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -38,8 +38,8 @@ class Decoder(nn.Module):
             aspp_channels + low_level_dim, feature_dim, 3, padding=1, **bn_kw
         )
         self.fuse2 = ConvBN(feature_dim, feature_dim, 3, padding=1, **bn_kw)
-        self.drop1 = nn.Dropout(0.5) if dropout else nn.Identity()
-        self.drop2 = nn.Dropout(0.1) if dropout else nn.Identity()
+        self.drop1 = Dropout(0.5) if dropout else nn.Identity()
+        self.drop2 = Dropout(0.1) if dropout else nn.Identity()
         self.classifier = Conv(
             feature_dim, num_classes, 1, use_bias=True, dtype=dtype
         )

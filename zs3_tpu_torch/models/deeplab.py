@@ -6,7 +6,7 @@ backbone -> ASPP -> decoder -> bilinear upsample to input resolution
 pre-logit pixel embedding is a first-class output.  Methods take and
 return NHWC tensors, as in zs3_tpu:
 
-  forward(x)             -> f32 logits at input resolution (N,H,W,C);
+  forward(x)             -> f32 (or f64) logits at input resolution (N,H,W,C);
                             with fused_tail, in eval mode and at the exact
                             4x geometry, through kernel K4 (ops/tail_kernels.py)
   forward_features(x)    -> 256-d pixel embedding at the os4 grid
@@ -55,6 +55,7 @@ class DeepLab(nn.Module):
         dtype: torch.dtype = torch.float32,
         layers: Optional[Sequence[int]] = None,
         fused_tail: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.fused_tail = fused_tail
@@ -69,7 +70,8 @@ class DeepLab(nn.Module):
         self.compute_dtype = dtype
         self.num_classes = num_classes
         self.backbone = ResNetAtrous(
-            layers=tuple(layers), output_stride=output_stride, dtype=dtype, **bn_kw
+            layers=tuple(layers), output_stride=output_stride, dtype=dtype, remat=remat,
+            **bn_kw
         )
         aspp = ASPP(2048, output_stride, feature_dim, dropout=dropout, dtype=dtype, **bn_kw)
         decoder = Decoder(
@@ -111,8 +113,10 @@ class DeepLab(nn.Module):
             w = conv.weight.detach()[:, :, 0, 0].t()
             return tail_kernels.tail_logits(feats, w, conv.bias.detach(), size).float()
         logits = self.classify(feats)
-        # Upsample in the compute dtype, output f32 (as zs3_tpu does).
-        return self.upsample_logits(logits, size).float()
+        # Upsample in the compute dtype, output f32 (as zs3_tpu does), or
+        # the compute dtype when that is wider.
+        logits = self.upsample_logits(logits, size)
+        return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
 
 def build_deeplab(cfg: ModelConfig) -> DeepLab:
@@ -129,6 +133,7 @@ def build_deeplab(cfg: ModelConfig) -> DeepLab:
         dropout=cfg.dropout,
         dtype=getattr(torch, cfg.compute_dtype),
         fused_tail=cfg.fused_tail,
+        remat=cfg.remat,
     )
 
 

@@ -8,7 +8,12 @@ Parameters stay f32; a conv runs in the compute dtype it was built with
 (zs3_tpu.models.layers._ConvImpl casts input and kernel the same way).
 
 BatchNorm keeps torch's parameter names (weight, bias, running_mean,
-running_var).  Momentum follows torch: flax's 0.9 is torch's 0.1.
+running_var).  Momentum follows torch: flax's 0.9 is torch's 0.1.  In
+train mode it updates running_var with the biased batch variance, as
+flax does, not torch's unbiased one.  Dropout draws its masks from a
+torch.Generator the train step hands it (`set_dropout_generator`), never
+from the global RNG, so a resumed run draws what an uninterrupted one
+does.
 """
 
 from __future__ import annotations
@@ -92,10 +97,66 @@ class Conv(nn.Conv2d):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d whose output keeps the input's (compute) dtype; its
-    parameters and running statistics stay f32."""
+    parameters and running statistics stay f32.
+
+    Train mode normalises with the batch mean and biased variance and
+    then sets, as flax's BatchNorm does,
+        running_mean = m * running_mean + (1 - m) * mean
+        running_var  = m * running_var  + (1 - m) * var_biased
+    (m = flax's momentum; nn.BatchNorm2d would use the unbiased variance,
+    n/(n-1) larger).  The batch statistics come from the normalisation's
+    own saved mean and inverse std, so no second reduction runs.  While
+    `update_stats` is False (a checkpointed block recomputing its
+    forward) the running statistics stay as they are.
+    """
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
         super().__init__(features, eps=epsilon, momentum=1.0 - momentum)
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps
+        )
+        if self.update_stats:
+            with torch.no_grad():
+                var = invstd.float().reciprocal().square() - self.eps
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean.float(), alpha=self.momentum)
+                self.running_var.mul_(keep).add_(var.clamp(min=0.0), alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
+        return out
+
+
+class Dropout(nn.Module):
+    """flax's nn.Dropout: in train mode keep each value with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate).  The uniform draws
+    come from `generator` (set_dropout_generator), which train mode
+    requires; eval mode is the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode draws from a generator: call "
+                               "set_dropout_generator(model, generator) first")
+        u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=self.generator)
+        keep = 1.0 - self.rate
+        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Point every Dropout of `model` at `generator` (or None)."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
 
 
 class ConvBN(nn.Module):

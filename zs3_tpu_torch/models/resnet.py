@@ -9,11 +9,13 @@ torchvision state_dict loads as it is.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from zs3_tpu_torch.models.layers import (
     BatchNorm,
@@ -29,6 +31,10 @@ class Bottleneck(nn.Module):
     """1x1 reduce -> 3x3 (stride/dilation) -> 1x1 expand(4x) + skip.
 
     The stride sits on the 3x3 conv2, as in zs3_tpu and torchvision v1.5.
+    With `remat`, a train-mode forward that records a graph runs under
+    torch.utils.checkpoint (non-reentrant): the block keeps only its input
+    and recomputes the rest in the backward, with its BN running
+    statistics held still during the recompute (zs3_tpu's nn.remat).
     """
 
     def __init__(
@@ -41,8 +47,10 @@ class Bottleneck(nn.Module):
         bn_momentum: float = 0.9,
         bn_epsilon: float = 1e-5,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         bn = lambda c: BatchNorm(c, bn_momentum, bn_epsilon)
         self.conv1 = Conv(in_channels, planes, 1, dtype=dtype)
         self.bn1 = bn(planes)
@@ -63,6 +71,23 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), self._recomputing()))
+        return self._forward(x)
+
+    @contextlib.contextmanager
+    def _recomputing(self):
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
+        for bn in bns:
+            bn.update_stats = False
+        try:
+            yield
+        finally:
+            for bn in bns:
+                bn.update_stats = True
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
         y = F.relu(self.bn1(self.conv1(x)))
         y = F.relu(self.bn2(self.conv2(y)))
@@ -97,6 +122,7 @@ class ResNetAtrous(nn.Module):
         bn_epsilon: float = 1e-5,
         dtype: torch.dtype = torch.float32,
         stem_width: int = 64,
+        remat: bool = False,
     ):
         super().__init__()
         strides, dilations = stage_plan(output_stride)
@@ -123,6 +149,7 @@ class ResNetAtrous(nn.Module):
                         bn_momentum=bn_momentum,
                         bn_epsilon=bn_epsilon,
                         dtype=dtype,
+                        remat=remat,
                     )
                 )
                 in_ch = planes * 4

@@ -15,9 +15,9 @@ The MMD runs on `KernelSum` (kernels K2/K3, ops/mmd_kernels.py) on the
 GPU, and on their plain versions on the CPU.  Validation
 splices the retrained classifier into the trunk and reports
 seen/unseen/harmonic mIoU through the eval step (kernel K1), or the
-ms+flip TTA step when `train.eval_scales`/`eval_flip` ask for it.
-Checkpoint writes, `gmmn_resume` and the metric logger come with the
-saver slice.
+ms+flip TTA step when `train.eval_scales`/`eval_flip` ask for it, and
+writes a checkpoint of the generator and the classifier with their
+optimizers under ``<checkname>-gmmn``; `train.gmmn_resume` restores one.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ from zs3_tpu_torch.models.gmmn import GMMNGenerator, build_gmmn, init_gmmn
 from zs3_tpu_torch.ops.mmd_kernels import batched_kernel_mmd_loss
 from zs3_tpu_torch.ops.sampling import downsample_labels, draw_scores, sample_class_pixels
 from zs3_tpu_torch.train.seen import build_eval_model, device_batch, select_eval_step
+from zs3_tpu_torch.utils.logging import MetricLogger
+from zs3_tpu_torch.utils.saver import Saver
 
 Params = Dict[str, torch.Tensor]
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -242,7 +244,6 @@ def refuse_unported(cfg: Config):
         "train.int8_features": cfg.train.int8_features,
         "data.device_preprocess": cfg.data.device_preprocess,
         "train.int8_eval": cfg.train.int8_eval,
-        "train.gmmn_resume": bool(cfg.train.gmmn_resume),
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -278,10 +279,14 @@ def class_embeddings(cfg: Config, num_classes: int) -> np.ndarray:
 class GMMNTrainer:
     """Step 2 of the pipeline: zero-shot transfer via generated features.
 
-    The trunk comes from cfg.train.resume (a `.pt` state_dict) or a
-    seeded init; the classifier starts from the trunk's own."""
+    The trunk comes from cfg.train.resume (a `train-seen` checkpoint or a
+    bare `.pt` state_dict) or a seeded init; the classifier starts from
+    the trunk's own, or with the generator from cfg.train.gmmn_resume."""
 
-    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda"):
+    checkpoint_suffix = "-gmmn"
+
+    def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
+                 saver: Optional[Saver] = None):
         device = resolve_device(device)
         refuse_unported(cfg)
         self.train_loader, self.val_loader, num_classes = make_data_loader(cfg.data)
@@ -312,6 +317,36 @@ class GMMNTrainer:
         )
         self.eval_fn = make_zs3_eval_step(num_classes, cfg.data.ignore_index, cfg.train)
         self.steps_per_epoch = cfg.train.steps_per_epoch or len(self.train_loader)
+        self.global_step = 0  # ZS3 steps taken (zs3_tpu's gen_state.step)
+        self.best_hiou = 0.0
+        if cfg.train.gmmn_resume:
+            self.load_checkpoint(Saver.restore(cfg.train.gmmn_resume))
+            # Carry the best-so-far across a resume (see SeenTrainer).
+            self.best_hiou = float(
+                Saver.read_meta(cfg.train.gmmn_resume).get("best_metric", 0.0))
+        self.saver = saver or Saver(cfg.train.checkpoint_dir, cfg.data.dataset,
+                                    cfg.train.checkname + self.checkpoint_suffix, cfg,
+                                    keep=cfg.train.keep_checkpoints)
+        self.logger = MetricLogger(self.saver.directory)
+
+    def checkpoint_payload(self) -> Dict:
+        """Generator, classifier, both Adam states and the step."""
+        return {
+            "gen": self.generator.state_dict(),
+            "cls": {k: v.detach() for k, v in self.step.cls.items()},
+            "gen_opt": self.step.gen_opt.state_dict(),
+            "cls_opt": self.step.cls_opt.state_dict(),
+            "step": self.global_step,
+        }
+
+    @torch.no_grad()
+    def load_checkpoint(self, payload: Dict):
+        self.generator.load_state_dict(payload["gen"])
+        for key, value in payload["cls"].items():
+            self.step.cls[key].copy_(value)
+        self.step.gen_opt.load_state_dict(payload["gen_opt"])
+        self.step.cls_opt.load_state_dict(payload["cls_opt"])
+        self.global_step = int(payload["step"])
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
@@ -321,30 +356,51 @@ class GMMNTrainer:
             if i >= self.steps_per_epoch:
                 break
             out = self.step(device_batch(batch, self.device))
+            self.global_step += 1
             mmds.append(out["mmd"])
             ces.append(out["cls_ce"])
-        return {
+        stats = {
             "epoch": epoch,
             "mmd": float(torch.stack(mmds).mean()) if mmds else float("nan"),
             "cls_ce": float(torch.stack(ces).mean()) if ces else float("nan"),
             "epoch_seconds": time.time() - t0,
         }
+        self.logger.log(self.global_step, stats, prefix="train")
+        return stats
 
-    def validate(self) -> Dict[str, float]:
+    def validate(self, epoch: int = 0) -> Dict[str, float]:
+        """Zero-shot metrics of the current classifier; writes a
+        checkpoint, `best` when the harmonic mIoU improved."""
         evaluator = Evaluator(self.num_classes, self.cfg.data.ignore_index, self.unseen)
         for batch in self.val_loader:
             evaluator.add_confusion(
                 self.eval_fn(self.model, self.step.cls, device_batch(batch, self.device))
             )
-        return evaluator.compute().as_dict()
+        report = evaluator.compute().as_dict()
+        self.logger.log(self.global_step, report, prefix="val")
+        hiou = report.get("harmonic_miou") or 0.0
+        is_best = hiou > self.best_hiou
+        if is_best:
+            self.best_hiou = hiou
+        self.saver.save_checkpoint(self.checkpoint_payload(), self.global_step, self.best_hiou,
+                                   is_best=is_best, extra={"epoch": epoch, **report})
+        return report
 
     def fit(self) -> Dict[str, float]:
         stats: Dict[str, float] = {}
         report: Dict[str, float] = {}
+        validated = False
         for epoch in range(self.cfg.train.epochs):
             stats = self.train_epoch(epoch)
             # eval_interval <= 0 means never validate (like --no-val).
             interval = self.cfg.train.eval_interval
-            if interval > 0 and (epoch + 1) % interval == 0:
-                report = self.validate()
+            validated = interval > 0 and (epoch + 1) % interval == 0
+            if validated:
+                report = self.validate(epoch)
+        if self.cfg.train.epochs and not validated:
+            # --no-val, or epochs after the last validation: checkpoints
+            # are otherwise written by validate() alone.
+            self.saver.save_checkpoint(self.checkpoint_payload(), self.global_step,
+                                       self.best_hiou, is_best=False,
+                                       extra={"epoch": self.cfg.train.epochs - 1})
         return {**stats, **report}
