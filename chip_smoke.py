@@ -31,7 +31,9 @@ just after:
     --resume <seen checkpoint> --no-val` (1 step), `evaluate-gmmn
     --gmmn-resume <its checkpoint>`, `evaluate --resume <seen checkpoint>`;
   * K5 over the 29 identity blocks of that trained trunk, reloaded from
-    its checkpoint, in eval mode at eval batch 4: one launch per block.
+    its checkpoint, in eval mode at eval batch 4: one launch per block
+    (and, before the paths, K5 on small and ragged shapes and its
+    refusal of bf16 widths that are not multiples of 64).
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
@@ -507,16 +509,90 @@ def k5_bound(bsz, h, w, c, p, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def unfused_block(x_nchw, w1, b1, w2, b2, w3, b3, d):
-    """The block as three cuDNN convolutions with the folded weights (the
-    library yardstick), NCHW channels_last in and out."""
+def library_block(params, dtype):
+    """The yardstick's weights: the folded weights as OIHW conv kernels and
+    biases, cast to `dtype` once."""
+    w1, b1, w2, b2, w3, b3 = params
+    kernels = (w1.t()[:, :, None, None], w2.permute(3, 2, 0, 1), w3.t()[:, :, None, None])
+    return [t.to(dtype).contiguous() for t in (*kernels, b1, b2, b3)]
+
+
+def unfused_block(x_nchw, lib, d):
+    """The block as three cuDNN convolutions with the folded weights of
+    `library_block` (the library yardstick), NCHW channels_last in and
+    out."""
     import torch.nn.functional as F
 
-    dt = x_nchw.dtype
-    conv = lambda t, w, b, **kw: F.conv2d(t, w.to(dt), b.to(dt), **kw)
-    y = torch.relu(conv(x_nchw, w1.t()[:, :, None, None], b1))
-    y = torch.relu(conv(y, w2.permute(3, 2, 0, 1), b2, padding=d, dilation=d))
-    return torch.relu(conv(y, w3.t()[:, :, None, None], b3) + x_nchw)
+    k1, k2, k3, b1, b2, b3 = lib
+    y = torch.relu(F.conv2d(x_nchw, k1, b1))
+    y = torch.relu(F.conv2d(y, k2, b2, padding=d, dilation=d))
+    return torch.relu(F.conv2d(y, k3, b3) + x_nchw)
+
+
+K5_EDGES = (  # (shape, planes, dilation): small and ragged cases against the plain version
+    ((1, 33, 33, 1024), 256, 1),  # B = 1
+    ((2, 7, 9, 256), 64, 1),  # a 7 x 9 image: ragged M tiles and rows
+    ((2, 7, 9, 512), 128, 2),
+    ((1, 5, 5, 2048), 512, 8),  # every tap but the centre leaves the image
+)
+
+
+def k5_random_block(gen, c, p):
+    """Folded-block weights at the scale of a trained trunk's (std 1/sqrt(fan-in))."""
+    mk = lambda *s, fan: torch.randn(s, device="cuda", generator=gen) / fan ** 0.5
+    return (mk(c, p, fan=c), 0.1 * mk(p, fan=1), mk(3, 3, p, p, fan=9 * p), 0.1 * mk(p, fan=1),
+            mk(p, c, fan=p), 0.1 * mk(c, fan=1))
+
+
+def phase_k5_edges():
+    """K5 against its plain version on small and ragged shapes (K5_EDGES),
+    bf16 within 4 ulps of the pixel's largest |output| and f32 (TF32 off)
+    within 1e-5 of the largest |output|; then bf16 widths off 64 must be
+    refused before any launch."""
+    from zs3_tpu_torch.ops import bottleneck as plain
+    from zs3_tpu_torch.ops import bottleneck_kernels as k5
+
+    phase = "bottleneck edges"
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for shape, p, d in K5_EDGES:
+                params = k5_random_block(gen, shape[-1], p)
+                x = torch.randn(shape, device="cuda", generator=gen)
+                xb = x.bfloat16()
+                got = k5.fused_bottleneck(xb, *params, dilation=d).float()
+                want = plain.fused_bottleneck(xb, *params, dilation=d).float()
+                ulps = float(((got - want).abs()
+                              / bf16_ulp(want.abs().amax(-1, keepdim=True))).max())
+                got32 = k5.fused_bottleneck(x, *params, dilation=d)
+                want32 = plain.fused_bottleneck(x, *params, dilation=d)
+                scale = float(want32.abs().max())
+                err32 = float((got32 - want32).abs().max())
+                torch.cuda.synchronize()
+                check(ulps <= 4, phase, f"{shape} P={p} d={d} bf16: {ulps} ulps off the plain")
+                check(err32 <= 1e-5 * scale, phase,
+                      f"{shape} P={p} d={d} f32: {err32} off the plain (max |out| {scale})")
+                rows.append({"shape": list(shape), "planes": p, "dilation": d,
+                             "bf16_plain_ulps": ulps, "f32_plain_abs": err32,
+                             "f32_max_abs_out": scale})
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    refused = []
+    before = k5.fused_bottleneck.launches
+    for c, p in ((96, 64), (256, 48)):
+        x = torch.randn((1, 9, 9, c), device="cuda", generator=gen).bfloat16()
+        try:
+            with torch.inference_mode():
+                k5.fused_bottleneck(x, *k5_random_block(gen, c, p), dilation=1)
+        except ValueError as e:
+            refused.append(f"C={c} P={p}: {e}")
+        else:
+            fail(phase, f"bf16 C={c} P={p} was not refused")
+    check(k5.fused_bottleneck.launches == before, phase, "a refused call counted a launch")
+    emit(phase=phase, check="small and ragged shapes, bf16 and f32", blocks=rows,
+         bounds={"bf16_plain_ulps": 4, "f32_plain": 1e-5}, refused=refused)
 
 
 def phase_bottleneck(model=None, images=None):
@@ -527,7 +603,12 @@ def phase_bottleneck(model=None, images=None):
     within 1e-5 of the largest |output|) and against the trunk's own block
     (cuDNN convs, BN, ReLU; bf16 within 2^-4 of the pixel's largest
     |output|, f32 within 1e-4 of the block's), then the 29-launch pass of
-    the fused stages with the counts from 0, and times per stage shape."""
+    the fused stages with the counts from 0, then times: one block of each
+    stage shape (layer4 at d = 4 and d = 8) and the whole 29-block pass.
+    K5 is timed on weights packed once (`pack_block`) and the cuDNN
+    yardstick on weights cast to bf16 once (`library_block`), so neither
+    time holds a per-call cast; beside each device time, the host's own
+    time for one call (`host_ms`: what the host pays to queue it)."""
     import copy
 
     from zs3_tpu_torch.ops import bottleneck as plain
@@ -639,27 +720,67 @@ def phase_bottleneck(model=None, images=None):
     emit(phase=phase, check="fused stages over the trunk", launches=launches,
          stage_err_over_max_out=chained)
 
-    # Times per stage shape: one identity block (the stage's first).
+    # Times per stage shape: the stage's first identity block, and
+    # layer4's second (d = 8) as its own row.
+    timed = [(layer, layer, 1) for layer, _, _ in K5_STAGES] + [("layer4.d8", "layer4", 2)]
+    shapes = {layer: (shape, planes) for layer, shape, planes in K5_STAGES}
     with torch.inference_mode():
-        for layer, shape, planes in K5_STAGES:
-            block = getattr(backbone, layer)[1]
+        for name, layer, i in timed:
+            block = getattr(backbone, layer)[i]
             params = plain.fold_bottleneck(block)
             d = block.conv2.dilation[0]
-            x_nchw = inputs[(layer, 1)]
+            x_nchw = inputs[(layer, i)]
             x = x_nchw.permute(0, 2, 3, 1)
+            shape, planes = shapes[layer]
+            packed = k5.pack_block(params, x.dtype)
+            lib = library_block(params, x.dtype)
             row = {"shape": list(shape), "planes": planes, "dilation": d, "dtype": "bfloat16",
-                   "tile": k5.plan(shape, planes, d, x.dtype)}
+                   "plan": k5.plan(shape, planes, d, x.dtype, *k5.resident_ctas(0))}
             row.update(zip(("bound_ms", "bound_by"), k5_bound(*shape, planes, x.dtype)))
             row.update(
-                kernel_ms=time_ms(lambda: k5.fused_bottleneck(x, *params, dilation=d),
-                                  what=f"K5 {layer}"),
+                kernel_ms=time_ms(lambda: k5.fused_bottleneck(x, packed, dilation=d),
+                                  what=f"K5 {name}"),
                 plain_ms=time_ms(lambda: plain.fused_bottleneck(x, *params, dilation=d),
-                                 reps=5, what=f"K5 plain {layer}"),
-                library_ms=time_ms(lambda: unfused_block(x_nchw, *params, d),
-                                   what=f"K5 library {layer}"),
+                                 reps=5, what=f"K5 plain {name}"),
+                library_ms=time_ms(lambda: unfused_block(x_nchw, lib, d),
+                                   what=f"K5 library {name}"),
             )
-            timings[layer] = row
-            emit(phase=phase, stage=layer, **row)
+            row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+            row["kernel_host_ms"] = host_ms(lambda: k5.fused_bottleneck(x, packed, dilation=d))
+            row["library_host_ms"] = host_ms(lambda: unfused_block(x_nchw, lib, d))
+            timings[name] = row
+            emit(phase=phase, stage=name, **row)
+
+        # The whole pass: 29 launches over the four stages against the same
+        # 29 blocks as cuDNN convolutions, each stage from its first input.
+        stages = []
+        for layer, shape, planes in K5_STAGES:
+            blocks = list(getattr(backbone, layer))[1:]
+            folded = [plain.fold_bottleneck(b) for b in blocks]
+            stages.append((inputs[(layer, 1)], [b.conv2.dilation[0] for b in blocks],
+                           [k5.pack_block(f, model.compute_dtype) for f in folded],
+                           [library_block(f, model.compute_dtype) for f in folded]))
+
+        def k5_pass():
+            for x_nchw, dils, packed, _ in stages:
+                k5.fused_stage(x_nchw.permute(0, 2, 3, 1), packed, dils)
+
+        def library_pass():
+            for x_nchw, dils, _, libs in stages:
+                y = x_nchw
+                for lib, d in zip(libs, dils):
+                    y = unfused_block(y, lib, d)
+
+        bound = sum(k5_bound(*shape, planes, model.compute_dtype)[0] * (len(
+            getattr(backbone, layer)) - 1) for layer, shape, planes in K5_STAGES)
+        # One pass a timed call: five of cuDNN's would queue some 1,000
+        # kernels, past what the launch queue holds ahead of the sleep.
+        whole = {"blocks": 29, "kernel_ms": time_ms(k5_pass, reps=1, what="K5 whole pass"),
+                 "library_ms": time_ms(library_pass, reps=1, what="K5 library whole pass"),
+                 "kernel_host_ms": host_ms(k5_pass), "library_host_ms": host_ms(library_pass),
+                 "bound_ms": bound}
+        timings["whole_pass"] = whole
+        emit(phase=phase, stage="whole pass", **whole)
     errors = {"max_abs_err": max(r["bf16_plain_abs"] for r in rows),
               "f32_max_abs_err": max(r["f32_plain_abs"] for r in rows), **worst}
     return launches, errors, timings
@@ -1785,6 +1906,7 @@ def main() -> int:
     timings = phase_kernels()
     mmd_errors, mmd_timings = phase_mmd()
     tail_timings = phase_tail()
+    phase_k5_edges()
     phase_dilated()
     launches = phase_slice()
     zs3_launches = phase_zs3()
@@ -1882,6 +2004,7 @@ def main() -> int:
             **{f: k5_timings["layer3"][f] for f in ("bound_ms", "bound_by", "plain_ms",
                                                    "library_ms", "shape", "dtype")},
             "ms": k5_timings["layer3"]["kernel_ms"],
+            "whole_pass": k5_timings.pop("whole_pass"),
             "stages": k5_timings,
         },
     ]}), flush=True)
