@@ -29,7 +29,9 @@ just after:
     launch per eval batch, a checkpoint and `best` written;
   * the chained pipeline through the port's checkpoints: `train-gmmn
     --resume <seen checkpoint> --no-val` (1 step), `evaluate-gmmn
-    --gmmn-resume <its checkpoint>`, `evaluate --resume <seen checkpoint>`;
+    --gmmn-resume <its checkpoint>` (whose next draws must be the
+    uninterrupted run's second step's, not its first's), `evaluate
+    --resume <seen checkpoint>`;
   * K5 over the 29 identity blocks of that trained trunk, reloaded from
     its checkpoint, in eval mode at eval batch 4: one launch per block
     (and, before the paths, K5 on small and ragged shapes and its
@@ -415,16 +417,63 @@ def check_k4(feats, w, b, what):
     return out
 
 
+def k4_tile_ms(lib, feats, w, b, tc):
+    """K4's time at tile width tc (a launch the kernel takes, with the grid
+    of its occupancy there; `plan` picks one of them), after checking that
+    it writes the same bits as the launch `plan` picks."""
+    from zs3_tpu_torch.ops import tail_kernels
+
+    bsz, hi, wi, c = feats.shape
+    k = w.shape[1]
+    is_bf16 = int(feats.dtype == torch.bfloat16)
+    size = (4 * (hi - 1) + 1, 4 * (wi - 1) + 1)
+    items = bsz * (hi - 1) // 8 * max(1, -(-(wi - 1) // tc))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = min(items, sms * tail_kernels.resident_ctas(0, is_bf16, c, k, tc))
+    out = torch.empty((bsz, *size, k), dtype=feats.dtype, device="cuda")
+
+    def launch():
+        rc = lib.zs3_classify_resize(
+            feats.data_ptr(), is_bf16, bsz, hi, wi, c, w.data_ptr(), w.stride(0), w.stride(1),
+            b.data_ptr(), k, tc, grid, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, "tail kernels", f"K4 at tile {tc}: {lib.zs3_cuda_error_string(rc)}")
+
+    launch()
+    want = tail_kernels.classify_resize(feats, w, b, size)
+    check(torch.equal(out, want), "tail kernels", f"K4 at tile {tc} differs from plan's launch")
+    return time_ms(launch, what=f"K4 at tile {tc}")
+
+
+def traffic_ms(feats, size, k):
+    """What the card's memory does with K4's traffic: a device-to-device
+    copy of half its bytes (each byte read once and written once), a read
+    of the features alone (a sum) and a write of the logits alone (a
+    fill), as the library runs them."""
+    logits = torch.empty((feats.shape[0], *size, k), dtype=feats.dtype, device="cuda")
+    half = (feats.numel() + logits.numel()) * feats.element_size() // 2
+    src = torch.empty(half, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    return {
+        "copy_ms": time_ms(lambda: dst.copy_(src), what="copy of K4's bytes"),
+        "read_ms": time_ms(lambda: feats.sum(), what="read of K4's features"),
+        "write_ms": time_ms(lambda: logits.zero_(), what="write of K4's logits"),
+    }
+
+
 def phase_tail():
     """K4 on the card against its plain version at the serve path's shapes
-    (bf16, and f32 with TF32 off), the edge shapes of
-    tests/test_pallas_tail.py, a C that is not a multiple of 4; its
-    refusals; and its times beside the bound, the plain version and
-    F.interpolate(F.conv2d(...))."""
+    (bf16, and f32 with TF32 off), the TTA shapes, the edge shapes of
+    tests/test_pallas_tail.py, a C that is not a multiple of 4 or 8; its
+    refusals; each launch's layout (route, tile, CTAs, shared memory, the
+    latter equal to plan's); and its times beside the bound, the plain
+    version and F.interpolate(F.conv2d(...)), with its host ms a call and,
+    at the main path, what a copy, a read and a write of its bytes take."""
     import torch.nn.functional as F
 
+    from zs3_tpu_torch.ops import tail_kernels
     from zs3_tpu_torch.ops.tail_kernels import classify_resize, classify_resize_reference
 
+    lib = tail_kernels._LIB.get()
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
@@ -432,22 +481,30 @@ def phase_tail():
         ((8, 129, 129, 256, 21), bf16, True),   # serve batch 8, the main path
         ((1, 129, 129, 256, 21), f32, False),
         ((8, 129, 129, 256, 21), f32, True),
-        ((4, 97, 97, 256, 21), bf16, False),    # TTA scale 0.75 (385x385 input)
-        ((4, 161, 161, 256, 21), bf16, False),  # TTA scale 1.25 (641x641 input)
+        ((4, 97, 97, 256, 21), bf16, True),     # TTA scale 0.75 (385x385 input)
+        ((4, 161, 161, 256, 21), bf16, True),   # TTA scale 1.25 (641x641 input)
         ((2, 17, 17, 16, 5), f32, False),       # crop-65 geometry, odd class count
         ((1, 9, 9, 8, 21), f32, False),         # one band, clamped last row
         ((3, 17, 17, 32, 128), f32, False),     # K = 128
         ((2, 17, 23, 30, 21), f32, False),      # C = 30, W != H, ragged column tile
         ((2, 17, 17, 16, 7), bf16, False),      # tests/test_pallas_tail.py's bf16 case
+        ((2, 17, 23, 30, 21), bf16, False),     # bf16 features TMA cannot describe
     ]
     timings = {}
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for shape, dtype, timed in cases:
             feats, w, b = tail_inputs(gen, *shape, dtype)
+            layout = tail_kernels.card_plan(shape[:4], shape[4], dtype, 0)
+            c_smem = lib.zs3_classify_resize_smem(int(dtype == bf16), shape[3], shape[4],
+                                                  layout["tile_cols"])
+            check(c_smem == layout["smem_bytes"], "tail kernels",
+                  f"{shape}: plan says {layout['smem_bytes']} bytes, the kernel {c_smem}")
             row = dict(phase="tail kernels", kernel="classify_resize", shape=list(shape),
                        dtype=str(dtype).split(".")[-1],
-                       **check_k4(feats, w, b, f"{shape} {dtype}"))
+                       **check_k4(feats, w, b, f"{shape} {dtype}"),
+                       **{f: layout[f] for f in ("route", "tile_cols", "items", "grid",
+                                                 "ctas_per_sm", "smem_bytes")})
             if timed:
                 bsz, hi, wi, c, k = shape
                 size = (4 * (hi - 1) + 1, 4 * (wi - 1) + 1)
@@ -462,8 +519,13 @@ def phase_tail():
                     library_ms=time_ms(lambda: F.interpolate(
                         F.conv2d(x_nchw, w4, b4), size=size, mode="bilinear",
                         align_corners=True), what=f"K4 library {shape}"),
+                    host_ms=host_ms(lambda: classify_resize(feats, w, b, size)),
                 )
-                timings[(shape[0], row["dtype"])] = row
+                row["tile_ms"] = {tc: k4_tile_ms(lib, feats, w, b, tc)
+                                  for tc in tail_kernels.TILE_COLS}
+                if shape[0] == SERVE_BATCH and dtype == bf16:
+                    row.update(traffic_ms(feats, size, shape[4]))
+                timings[(shape[0], shape[1], row["dtype"])] = row
             emit(**row)
     finally:
         torch.backends.cudnn.allow_tf32 = True
@@ -477,6 +539,10 @@ def phase_tail():
             feats.clone().requires_grad_(True), w, b, (65, 65))),
         "unsupported geometry": (ValueError, lambda: classify_resize(
             feats[:, :16, :16].contiguous(), w, b, (61, 61))),
+        "shared memory": (ValueError, lambda: classify_resize(
+            torch.zeros((1, 17, 17, 2048), dtype=bf16, device="cuda"),
+            torch.zeros((2048, 128), device="cuda"), torch.zeros(128, device="cuda"),
+            (65, 65))),
     }
     for what, (error, fn) in refusals.items():
         try:
@@ -487,6 +553,46 @@ def phase_tail():
     check(classify_resize.launches == before, "tail kernels", "a refused call counted")
     emit(phase="tail kernels", refused=sorted(refusals), ok=True)
     return timings
+
+
+K4_BARS = [  # (shape, dtype) of K4's bars: the main path, one request, TTA, f32
+    ((8, 129, 129, 256, 21), "bfloat16"), ((1, 129, 129, 256, 21), "bfloat16"),
+    ((4, 97, 97, 256, 21), "bfloat16"), ((4, 161, 161, 256, 21), "bfloat16"),
+    ((8, 129, 129, 256, 21), "float32"),
+]
+K4_TIMES = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from zs3_tpu_torch.ops.tail_kernels import classify_resize
+gen = torch.Generator(device="cuda").manual_seed(3)
+out = []
+for shape, dtype in json.loads(sys.argv[1]):
+    feats, w, b = c.tail_inputs(gen, *shape, getattr(torch, dtype))
+    size = (4 * (shape[1] - 1) + 1, 4 * (shape[2] - 1) + 1)
+    out.append(c.time_ms(lambda: classify_resize(feats, w, b, size), what=str(shape)))
+print(json.dumps(out))
+"""
+
+
+def k4_against(other_root: str):
+    """K4 of this checkout against K4 of another (a parent commit unpacked
+    at `other_root`) at K4_BARS, on one card: each checkout times its own
+    kernel in a process of its own, in turns (other, this, this, other).
+    Prints one line: both checkouts' times, the best of each, the ratios."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    times = {"other": [], "this": []}
+    order = ["other", "this", "this", "other"]
+    for name in order:
+        root = other_root if name == "other" else here
+        proc = subprocess.run([sys.executable, "-c", K4_TIMES, json.dumps(K4_BARS)], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, "k4 against", f"{name}: {proc.stderr[-2000:]}")
+        times[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    best = {name: [min(t) for t in zip(*runs)] for name, runs in times.items()}
+    emit(phase="k4 against", other=os.path.relpath(other_root, here), cases=K4_BARS,
+         order=order, runs=times, best_ms=best,
+         speedup=[o / t for o, t in zip(best["other"], best["this"])])
 
 
 K5_STAGES = (  # (layer, main-path input shape, planes): R101 os16 at 513x513, batch 4
@@ -1507,13 +1613,14 @@ def phase_zs3():
     host_batches = [b for _, b in zip(range(ZS3_STEPS), trainer.train_loader)]
     batches = [device_batch(b, torch.device("cuda")) for b in host_batches]
     turn = itertools.cycle(batches)
+    step_index = itertools.count(trainer.global_step)
 
     def one_step():
-        trainer.step(next(turn))
+        trainer.step(next(turn), step=next(step_index))
 
     def one_pass():
         for batch in batches:
-            trainer.step(batch)
+            trainer.step(batch, step=next(step_index))
 
     before = _params(trainer)
     torch.cuda.synchronize()
@@ -1539,11 +1646,11 @@ def phase_zs3():
     mmd_ms = mmd_kernel_ms(prof)
     step = trainer.step
     feats, labels = step.features(batches[0])
-    u, noise1, noise2 = step.draw(labels.shape[0])
+    u, noise1, noise2 = step.draw(labels.shape[0], 0)
     real, real_mask = step.sample(feats, labels, u)
     stages = {
         "trunk": lambda: step.features(batches[0]),
-        "draws": lambda: step.draw(labels.shape[0]),
+        "draws": lambda: step.draw(labels.shape[0], 0),
         "sampling": lambda: step.sample(feats, labels, u),
         "generator_update": lambda: step.generator_update(real, real_mask, noise1),
         "classifier_update": lambda: step.classifier_update(real, real_mask, noise2),
@@ -1598,7 +1705,7 @@ def phase_zs3_reference():
     cpu_batch = device_batch(batch, torch.device("cpu"))
     gpu_batch = device_batch(batch, torch.device("cuda"))
     _, labels = cpu_step.features(cpu_batch)
-    draws = cpu_step.draw(labels.shape[0])
+    draws = cpu_step.draw(labels.shape[0], 0)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         want = cpu_step.body(cpu_batch, draws)
@@ -1801,10 +1908,22 @@ def phase_chained(seen_ckpt):
     same(gmmn["gen"], trainer.generator.state_dict(), "gmmn checkpoint: generator")
     same(gmmn["cls"], {k: v.detach() for k, v in trainer.step.cls.items()},
          "gmmn checkpoint: classifier")
+    # The draws of step 1, and of step 2 as the uninterrupted run takes it,
+    # for one batch's pixels at the feature grid.
+    pixels = 8 * 129 * 129
+    first_draws = trainer.step.draw(pixels, 0)
+    second_draws = trainer.step.draw(pixels, trainer.global_step)
     del trainer
     trainer, _ = stage("evaluate-gmmn", ["evaluate-gmmn", *common, "--gmmn-resume", gmmn_ckpt])
     same(gmmn["gen"], trainer.generator.state_dict(), "evaluate-gmmn's generator")
     check(trainer.global_step == gmmn["step"] == 1, phase, "evaluate-gmmn's step")
+    resumed_draws = trainer.step.draw(pixels, trainer.global_step)
+    check(all(torch.equal(a, b) for a, b in zip(resumed_draws, second_draws)), phase,
+          "the resumed run's next draws are not the uninterrupted run's second")
+    check(not any(torch.equal(a, b) for a, b in zip(resumed_draws, first_draws)), phase,
+          "the resumed run draws step 1's scores or noise again")
+    stages["evaluate-gmmn"]["resumed_draws_are_step_2s"] = True
+    del first_draws, second_draws, resumed_draws
     del trainer
     trainer, _ = stage("evaluate", ["evaluate", *common])
     same(Saver.restore(seen_ckpt)["model"], trainer.model.state_dict(), "evaluate's model")
@@ -1932,7 +2051,7 @@ def main() -> int:
     phase_seen_reference()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     b4, b16 = timings[4], timings[16]
-    k4 = tail_timings[(SERVE_BATCH, "bfloat16")]
+    k4 = tail_timings[(SERVE_BATCH, 129, "bfloat16")]
     k4_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
     main_err, main_t = mmd_errors["main path"], mmd_timings[128]
 
@@ -1989,8 +2108,13 @@ def main() -> int:
             "library_ms": k4["library_ms"],
             "shape": k4["shape"],
             "dtype": "bfloat16",
-            "b1": {f: tail_timings[(1, "bfloat16")][f] for f in k4_fields},
-            "b8_f32": {f: tail_timings[(SERVE_BATCH, "float32")][f] for f in k4_fields},
+            "host_ms": k4["host_ms"],
+            **{f: k4[f] for f in ("tile_cols", "grid", "ctas_per_sm", "smem_bytes", "copy_ms",
+                                  "read_ms", "write_ms")},
+            "b1": {f: tail_timings[(1, 129, "bfloat16")][f] for f in k4_fields},
+            "b8_f32": {f: tail_timings[(SERVE_BATCH, 129, "float32")][f] for f in k4_fields},
+            "tta": {f"{n}x{n}": {f: tail_timings[(4, n, "bfloat16")][f] for f in k4_fields}
+                    for n in (97, 161)},
         },
         {
             "name": "fused_bottleneck",

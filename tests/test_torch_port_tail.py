@@ -114,6 +114,192 @@ def test_dispatch_takes_the_plain_version_on_cpu():
     assert tail_kernels.classify_resize.launches == 0
 
 
+# ---- K4's launch layout (the kernel runs only on the card) -----------------------
+
+# chip_smoke.py::phase_tail's shapes (its batch is replaced by 1, 4 and 8).
+PHASE_TAIL_SHAPES = [
+    ((129, 129, 256, 21), torch.bfloat16), ((129, 129, 256, 21), torch.float32),
+    ((97, 97, 256, 21), torch.bfloat16), ((161, 161, 256, 21), torch.bfloat16),
+    ((17, 17, 16, 5), torch.float32), ((9, 9, 8, 21), torch.float32),
+    ((17, 17, 32, 128), torch.float32), ((17, 23, 30, 21), torch.float32),
+    ((17, 17, 16, 7), torch.bfloat16), ((17, 23, 30, 21), torch.bfloat16),
+]
+
+
+def _decode(item, lay, w):
+    """The kernel's decode(): (image, first source row, first source
+    column, source columns held, output columns written) of an item."""
+    per_image = lay["bands"] * lay["tiles"]
+    b, rem = divmod(item, per_image)
+    t, u = divmod(rem, lay["tiles"])
+    tc = lay["tile_cols"]
+    ncs = min(tc, w - 1 - u * tc) + 1
+    ncols = 4 * (ncs - 1) + 1 if u == lay["tiles"] - 1 else 4 * tc
+    return b, 8 * t, u * tc, ncs, ncols
+
+
+def _walk(shape, k, lay):
+    """(CTA, item, rows): each CTA's items in its order, each item's output
+    rows as (warp, image, output row, first output column, output
+    columns); warp w of the CTA writes rows w, w + 8, ... of the item."""
+    _, h, w, _ = shape
+    for cta in range(lay["grid"]):
+        for item in range(cta, lay["items"], lay["grid"]):
+            b, r0, c0, _, ncols = _decode(item, lay, w)
+            n_rows = 33 if r0 + 8 == h - 1 else 32
+            yield cta, item, [(r % 8, b, 4 * r0 + r, 4 * c0, ncols) for r in range(n_rows)]
+
+
+def _split(start, run, esize):
+    """A run of `run` elements at flat element `start` of an output whose
+    base is 16-byte aligned: (head, 16-byte vectors, tail)."""
+    vec = 16 // esize
+    head = min(run, (16 - start * esize % 16) % 16 // esize)
+    nv = (run - head) // vec
+    return head, nv, run - head - nv * vec
+
+
+@pytest.mark.parametrize("bsz", [1, 4, 8])
+@pytest.mark.parametrize("hwck,dtype", PHASE_TAIL_SHAPES)
+def test_k4_layout_writes_every_output_once(hwck, dtype, bsz):
+    """Each item is walked by one CTA, each output row run is written by
+    one item, the runs tile the output exactly, and each run's head, 16-byte
+    vectors and tail cover it with the vectors on aligned addresses."""
+    h, w, c, k = hwck
+    shape = (bsz, h, w, c)
+    lay = tail_kernels.plan(shape, k, dtype)
+    assert lay["tile_cols"] in (4, 8, 16) and 1 <= lay["grid"] <= lay["items"]
+    assert lay["smem_bytes"] <= tail_kernels.MAX_SHARED_BYTES
+    ho, wo = 4 * (h - 1) + 1, 4 * (w - 1) + 1
+    esize = 2 if dtype == torch.bfloat16 else 4
+    items, runs = [], []
+    for _, item, rows in _walk(shape, k, lay):
+        items.append(item)
+        for _, b, row, col, ncols in rows:
+            start, run = ((b * ho + row) * wo + col) * k, ncols * k
+            head, nv, tail = _split(start, run, esize)
+            assert head + nv * (16 // esize) + tail == run and tail < 16 // esize
+            assert head == run or (start + head) * esize % 16 == 0
+            runs.append((start, run))
+    assert sorted(items) == list(range(lay["items"]))
+    runs.sort()
+    ends = np.cumsum([0] + [n for _, n in runs])
+    assert [s for s, _ in runs] == list(ends[:-1])
+    assert ends[-1] == bsz * ho * wo * k
+
+
+@pytest.mark.parametrize(
+    "shape,k,ctas,want",
+    [
+        ((8, 129, 129, 256), 21, {16: 2, 8: 3}, 16),  # the main path: 1024 items
+        ((1, 129, 129, 256), 21, {16: 2, 8: 3}, 8),   # one request: 128 items of 16
+        ((4, 97, 97, 256), 21, {16: 2, 8: 3}, 8),     # TTA 0.75: 288 items of 16
+        ((4, 161, 161, 256), 21, {16: 2, 8: 3}, 16),  # TTA 1.25: 800 items of 16
+        ((4, 161, 161, 256), 21, {16: 4, 8: 3}, 8),   # a card with more room
+        ((8, 129, 129, 256), 64, {8: 2, 4: 3}, 8),    # the staged rows grow with K
+        ((8, 129, 129, 256), 128, {4: 1}, 4),
+    ],
+)
+def test_k4_tile_cols(shape, k, ctas, want):
+    """The widest tile the classes allow, halved when its items fill the
+    grid less than twice."""
+    assert tail_kernels.tile_cols(shape, k, 132, ctas) == want
+    lay = tail_kernels.plan(shape, k, torch.bfloat16, 132, ctas)
+    assert lay["tile_cols"] == want
+    assert lay["grid"] == min(lay["items"], 132 * ctas[want])
+
+
+def test_k4_plan_refuses():
+    with pytest.raises(ValueError, match="geometry"):
+        tail_kernels.plan((1, 16, 16, 8), 21, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        tail_kernels.plan((1, 17, 17, 2048), 128, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tail_kernels.plan((1, 17, 17, 8), 21, torch.float16)
+    assert tail_kernels.plan((8, 129, 129, 256), 21, torch.bfloat16)["route"] == "tma"
+    assert tail_kernels.plan((2, 17, 23, 30), 21, torch.bfloat16)["route"] == "loads"
+    assert tail_kernels.plan((2, 17, 23, 30), 21, torch.float32)["route"] == "fma"
+
+
+def _emulate_k4(feats, w, b, lay):
+    """The kernel's work in torch: per item, the source logits in f32 (the
+    bf16 route rounds w and b first); per output row 4q + p, each (source
+    column cq, class k) pair blends rows q and q + 1 (H), then writes its
+    up to four output columns 4cq + s (W) into a staged copy of the row
+    at the row's address modulo 16, copied out as head, 16-byte vectors
+    and tail.  Returns the output and how many times each element was
+    written."""
+    bsz, h, wi, c = feats.shape
+    k = w.shape[1]
+    ho, wo = 4 * (h - 1) + 1, 4 * (wi - 1) + 1
+    dtype = feats.dtype
+    esize = feats.element_size()
+    vec = 16 // esize
+    w32, b32 = w.to(dtype).float(), b.to(dtype).float()
+    out = torch.full((bsz * ho * wo * k,), float("nan"), dtype=dtype)
+    writes = torch.zeros(out.shape, dtype=torch.int32)
+    tc = lay["tile_cols"]
+    for _, item, rows in _walk(tuple(feats.shape), k, lay):
+        bi, r0, c0, ncs, ncols = _decode(item, lay, wi)
+        src = torch.zeros(9, tc + 1, c)
+        src[:, :ncs] = feats[bi, r0:r0 + 9, c0:c0 + ncs].float()
+        logits = src @ w32 + b32  # L (9, tc + 1, K)
+        pair = torch.arange((ncols + 3) // 4 * k)
+        cq, kk = pair // k, pair % k
+        ns = (ncols - 4 * cq).clamp(max=4)
+        for _, _, row, col, _ in rows:
+            q, p = divmod(row - 4 * r0, 4)
+            lo, hi = logits[q], logits[min(q + 1, 8)]
+            cr = (cq + 1).clamp(max=tc)
+            ha = (1 - p / 4) * lo[cq, kk] + (p / 4) * hi[cq, kk] if p else lo[cq, kk]
+            hb = (1 - p / 4) * lo[cr, kk] + (p / 4) * hi[cr, kk] if p else lo[cr, kk]
+            start = ((bi * ho + row) * wo + col) * k
+            phase = start * esize % 16 // esize
+            staged = torch.zeros(phase + ncols * k, dtype=dtype)
+            for sw in range(4):
+                on = ns > sw
+                v = (1 - sw / 4) * ha + (sw / 4) * hb if sw else ha
+                staged[phase + ((4 * cq + sw) * k + kk)[on]] = v[on].to(dtype)
+            head, nv, tail = _split(start, ncols * k, esize)
+            for a, z in [(0, head), (head, head + nv * vec), (head + nv * vec, ncols * k)]:
+                out[start + a:start + z] = staged[phase + a:phase + z]
+                writes[start + a:start + z] += 1
+    return out.view(bsz, ho, wo, k), writes
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [
+        ((2, 17, 17, 16, 5), torch.float32),
+        ((1, 9, 9, 8, 21), torch.float32),
+        ((2, 17, 23, 30, 21), torch.float32),
+        ((2, 17, 17, 16, 7), torch.bfloat16),
+        ((2, 17, 23, 30, 21), torch.bfloat16),
+    ],
+)
+def test_k4_emulated_layout_matches_plain_version(shape, dtype):
+    """The kernel's mapping emulated in torch writes every element once
+    and equals the plain version: f32 to 1e-5; bf16 to one bf16 rounding
+    of the f32 result (the plain version rounds after each product)."""
+    bsz, h, wi, c, k = shape
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.standard_normal((bsz, h, wi, c)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((c, k)) * 0.2).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(k) * 0.1).astype(np.float32))
+    feats = feats.to(dtype)
+    lay = tail_kernels.plan(feats.shape, k, dtype, 4, {tc: 1 for tc in tail_kernels.TILE_COLS})
+    got, writes = _emulate_k4(feats, w, b, lay)
+    assert bool((writes == 1).all())
+    size = (4 * (h - 1) + 1, 4 * (wi - 1) + 1)
+    want = tail_kernels.classify_resize_reference(
+        feats.float(), w.to(dtype).float(), b.to(dtype).float(), size)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want.to(dtype).float().numpy(),
+                                   rtol=2 ** -7, atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def tiny_pair():
     rng = np.random.default_rng(0)

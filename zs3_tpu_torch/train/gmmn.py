@@ -39,7 +39,9 @@ from zs3_tpu_torch.models.deeplab import DeepLab
 from zs3_tpu_torch.models.gmmn import GMMNGenerator, build_gmmn, init_gmmn
 from zs3_tpu_torch.ops.mmd_kernels import batched_kernel_mmd_loss
 from zs3_tpu_torch.ops.sampling import downsample_labels, draw_scores, sample_class_pixels
-from zs3_tpu_torch.train.seen import build_eval_model, device_batch, select_eval_step
+from zs3_tpu_torch.train.seen import (
+    build_eval_model, device_batch, select_eval_step, step_generator,
+)
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.saver import Saver
 
@@ -124,10 +126,12 @@ class ZS3Step:
     """One ZS3 step (zs3_tpu.train.gmmn.make_zs3_step): features ->
     sample -> generator MMD update -> classifier CE update.
 
-    Holds the generator, the classifier params {"kernel", "bias"}, their
-    Adam optimizers and the step's random stream.  `body` takes the
-    random draws as an argument (tests feed it zs3_tpu's); the gradients
-    of the last update stay in the parameters' `.grad`.
+    Holds the generator, the classifier params {"kernel", "bias"} and
+    their Adam optimizers.  Step `step`'s draws are a function of (seed,
+    step) alone (zs3_tpu folds the step into its key), so a resumed run
+    draws what an uninterrupted one would.  `body` also takes the draws
+    as an argument (tests feed it zs3_tpu's); the gradients of the last
+    update stay in the parameters' `.grad`.
     """
 
     def __init__(
@@ -155,7 +159,7 @@ class ZS3Step:
         self.cls = {k: v.detach().clone().requires_grad_(True) for k, v in cls_params.items()}
         self.gen_opt = torch.optim.Adam(generator.parameters(), lr=cfg.optim.gmmn_lr)
         self.cls_opt = torch.optim.Adam(list(self.cls.values()), lr=cfg.optim.classifier_lr)
-        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
 
     def features(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Frozen-trunk features (N, D) f32 and their labels (N,) at the
@@ -167,13 +171,14 @@ class ZS3Step:
         labels = downsample_labels(batch["label"], (h, w))
         return feats.reshape(-1, d).float(), labels.reshape(-1)
 
-    def draw(self, num_pixels: int) -> Draws:
-        """(scores (C, N), noise1 (C, P, Z), noise2 (C, P, Z)) from the
-        step's generator."""
+    def draw(self, num_pixels: int, step: int) -> Draws:
+        """(scores (C, N), noise1 (C, P, Z), noise2 (C, P, Z)) of step
+        `step` (0 for the first)."""
+        rng = step_generator(self.seed, step, self.device)
         shape = (self.num_classes, self.budget, self.noise_dim)
-        u = draw_scores(self.num_classes, num_pixels, self.rng, self.device)
-        noise1 = torch.randn(shape, generator=self.rng, device=self.device)
-        noise2 = torch.randn(shape, generator=self.rng, device=self.device)
+        u = draw_scores(self.num_classes, num_pixels, rng, self.device)
+        noise1 = torch.randn(shape, generator=rng, device=self.device)
+        noise2 = torch.randn(shape, generator=rng, device=self.device)
         return u, noise1, noise2
 
     def generate(self, noise: torch.Tensor) -> torch.Tensor:
@@ -211,10 +216,11 @@ class ZS3Step:
         self.cls_opt.step()
         return ce.detach()
 
-    def body(self, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None):
-        """The step on `batch` with the given draws (drawn here if None)."""
+    def body(self, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None,
+             step: Optional[int] = None):
+        """The step on `batch` with the given draws, or with step `step`'s."""
         feats, labels = self.features(batch)
-        u, noise1, noise2 = draws if draws is not None else self.draw(labels.shape[0])
+        u, noise1, noise2 = draws if draws is not None else self.draw(labels.shape[0], step)
         real, real_mask = self.sample(feats, labels, u)
         mmd = self.generator_update(real, real_mask, noise1)
         ce = self.classifier_update(real, real_mask, noise2)
@@ -355,7 +361,7 @@ class GMMNTrainer:
         for i, batch in enumerate(self.train_loader):
             if i >= self.steps_per_epoch:
                 break
-            out = self.step(device_batch(batch, self.device))
+            out = self.step(device_batch(batch, self.device), step=self.global_step)
             self.global_step += 1
             mmds.append(out["mmd"])
             ces.append(out["cls_ce"])

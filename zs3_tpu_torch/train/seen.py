@@ -50,9 +50,10 @@ from zs3_tpu_torch.utils.saver import Saver
 Batch = Dict[str, torch.Tensor]
 
 
-def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
-    """The generator of step `step`'s dropout masks: a function of
-    (seed, step) alone."""
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The generator of step `step`'s random draws (the seen step's
+    dropout masks, the ZS3 step's scores and noise): a function of
+    (seed, step) alone, as zs3_tpu's `fold_in(rng, step)`."""
     state = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
@@ -92,7 +93,7 @@ def make_train_step(
             raise ValueError(f"batch size {images.shape[0]} is not divisible by grad_accum "
                              f"{grad_accum}")
         model.train()
-        set_dropout_generator(model, dropout_generator(seed, optimizer.step, images.device))
+        set_dropout_generator(model, step_generator(seed, optimizer.step, images.device))
         optimizer.zero_grad()
         loss_sum = None
         for mb_images, mb_labels in zip(images.chunk(grad_accum), labels.chunk(grad_accum)):
