@@ -68,6 +68,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock, the shortest sleep
 KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum", "classify_resize", "fused_bottleneck")
 FULL_WIDTH = [
@@ -299,7 +300,7 @@ def phase_build():
     seconds = time.time() - t0
     for name, lib in zip(KERNEL_SOURCES, libs):
         log = open(str(lib) + ".log").read()
-        ptxas = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln]
+        ptxas = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln or "spill" in ln]
         emit(phase="build", kernel=name, library=os.path.relpath(lib), ptxas=ptxas)
     emit(phase="build", seconds=seconds)
 
@@ -575,24 +576,198 @@ print(json.dumps(out))
 """
 
 
-def k4_against(other_root: str):
-    """K4 of this checkout against K4 of another (a parent commit unpacked
-    at `other_root`) at K4_BARS, on one card: each checkout times its own
-    kernel in a process of its own, in turns (other, this, this, other).
-    Prints one line: both checkouts' times, the best of each, the ratios."""
+K3_SHAPES = [[21, b, b, 256] for b in MMD_BUDGETS]  # the step's budgets, dx only
+K3_TIMES = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from zs3_tpu_torch.ops import mmd_kernels as mk
+from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+gen = torch.Generator(device="cuda").manual_seed(2)
+out = []
+for shape in json.loads(sys.argv[1]):
+    x, y, wx, wy = c.mmd_inputs(gen, *shape, (10, 14))
+    out.append(c.time_ms(lambda: mk.kernel_sum_grad(x, y, wx, wy, sig, with_dwx=False),
+                         reps=20 if shape[1] <= 512 else 3, what=str(shape)))
+print(json.dumps(out))
+"""
+
+
+def against(other_root: str, script: str, cases, phase: str):
+    """A kernel of this checkout against the same kernel of another (a
+    parent commit unpacked at `other_root`), on one card: each checkout
+    times its own kernel at `cases` in a process of its own, in turns
+    (other, this, this, other).  Prints one line: both checkouts' times,
+    the best of each, the ratios."""
     here = os.path.dirname(os.path.abspath(__file__))
     times = {"other": [], "this": []}
     order = ["other", "this", "this", "other"]
     for name in order:
         root = other_root if name == "other" else here
-        proc = subprocess.run([sys.executable, "-c", K4_TIMES, json.dumps(K4_BARS)], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", script, json.dumps(cases)], cwd=root,
                               capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, "k4 against", f"{name}: {proc.stderr[-2000:]}")
+        check(proc.returncode == 0, phase, f"{name}: {proc.stderr[-2000:]}")
         times[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     best = {name: [min(t) for t in zip(*runs)] for name, runs in times.items()}
-    emit(phase="k4 against", other=os.path.relpath(other_root, here), cases=K4_BARS,
+    emit(phase=phase, other=os.path.relpath(other_root, here), cases=cases,
          order=order, runs=times, best_ms=best,
          speedup=[o / t for o, t in zip(best["other"], best["this"])])
+    return best
+
+
+def k4_against(other_root: str):
+    """K4 of this checkout against another checkout's at K4_BARS, in turns."""
+    return against(other_root, K4_TIMES, K4_BARS, "k4 against")
+
+
+def k3_against(other_root: str):
+    """K3 (dx only) of this checkout against another checkout's at the
+    step's three budgets (K3_SHAPES), in turns."""
+    return against(other_root, K3_TIMES, K3_SHAPES, "k3 against")
+
+
+# K3's source with one part taken out or changed, to time what each part
+# costs (k3_parts): the substitutions apply to csrc/mmd_kernel_sum.cu.
+K3_PARTS = {
+    "x.y^T only (no C.y)": [(
+        "    cy_tile<NTD>(acc, red, red + kTile * kRedPitch, yt, dp);\n", "")],
+    "C.y only (no x.y^T)": [(
+        "    dot_tile_3xtf32(dot, xs, yt, dp);\n",
+        "    for (int a = 0; a < 8; ++a) dot[a / 4][a % 4] = 0.f;\n")],
+    "one TF32 product (hi.hi)": [(
+        "  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", "")],
+    "split by cvt.rna.tf32.f32": [(
+        "  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n",
+        "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(v));\n"
+        "  return r;\n")],
+}
+
+
+# The mma.sync TF32 ceiling K3's products run against: each warp issues
+# `iters` rounds of 8 independent m16n8k8 products from registers.
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+__global__ void __launch_bounds__(256) mma_probe(float* out, int iters) {
+  const uint32_t a0 = threadIdx.x, a1 = a0 + 1, a2 = a0 + 2, a3 = a0 + 3;
+  const uint32_t b0 = 3 * threadIdx.x, b1 = 5 * threadIdx.x;
+  float d[8][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]), "+f"(d[c][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  float s = 0.f;
+  for (int c = 0; c < 8; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int zs3_mma_probe(float* out, int blocks, int iters, void* stream) {
+  mma_probe<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def k3_parts():
+    """What holds K3 back, on one card: K3 against copies of its source
+    with one part taken out or changed (K3_PARTS), each built like the
+    kernel and called through its C entry point, timed in turns (forward,
+    then reverse) at (21,128,128,256) and (21,2048,2048,256), dx only;
+    the kernel at each cluster size at (21,128,128,256); a device copy of
+    the bytes K3 must move there (x and y read, dx written); and the
+    mma.sync TF32 rate of MMA_PROBE, four CTAs an SM.  Prints one line."""
+    import ctypes
+
+    from zs3_tpu_torch.ops import cuda_build
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+
+    phase = "k3 parts"
+    src = (cuda_build.CSRC / "mmd_kernel_sum.cu").read_text()
+    out_dir = os.path.join(SCRATCH, "k3_parts")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def build(item):
+        i, (name, subs) = item
+        text = src
+        for old, new in subs:
+            check(old in text, phase, f"{name}: the source no longer has {old!r}")
+            text = text.replace(old, new)
+        cu, so = os.path.join(out_dir, f"part{i}.cu"), os.path.join(out_dir, f"part{i}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, phase, f"{name}: {proc.stderr[-2000:]}")
+        return name, so
+
+    def build_probe():
+        cu, so = os.path.join(out_dir, "mma_probe.cu"), os.path.join(out_dir, "mma_probe.so")
+        with open(cu, "w") as f:
+            f.write(MMA_PROBE)
+        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, phase, f"mma probe: {proc.stderr[-2000:]}")
+        return so
+
+    parts = [("kernel", [])] + list(K3_PARTS.items())
+    with ThreadPoolExecutor(len(parts) + 1) as pool:  # one nvcc per variant
+        probe = pool.submit(build_probe)
+        built = list(pool.map(build, enumerate(parts)))
+        probe_so = probe.result()
+    lib = ctypes.CDLL(probe_so)
+    lib.zs3_mma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    blocks, iters = 4 * torch.cuda.get_device_properties(0).multi_processor_count, 2048
+    sink = torch.empty(blocks * 256, device="cuda")
+    probe_ms = time_ms(lambda: lib.zs3_mma_probe(sink.data_ptr(), blocks, iters,
+                                                 torch.cuda.current_stream().cuda_stream),
+                       reps=5, what="mma probe")
+    mma_tflops = blocks * 8 * iters * 8 * 2 * 16 * 8 * 8 / probe_ms / 1e9
+    libs = {}
+    for name, so in built:
+        lib = ctypes.CDLL(so)
+        fn = lib.zs3_mmd_kernel_sum_grad
+        fn.argtypes, fn.restype = mk._LIB._functions["zs3_mmd_kernel_sum_grad"]
+        libs[name] = lib
+    sigmas = (ctypes.c_float * len(sig))(*sig)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    result = {}
+    for shape in ([21, 128, 128, 256], [21, 2048, 2048, 256]):
+        c, n, m, d = shape
+        x, y, wx, wy = mmd_inputs(gen, c, n, m, d, (10, 14))
+        dx = torch.empty_like(x)
+        plan = mk.grad_plan(c, n, m, d)
+        runs = [(name, plan["cluster"]) for name in libs]
+        if n <= 128:
+            runs += [("kernel", cl) for cl in (1, 2, 4) if cl != plan["cluster"]]
+        times = {}
+        for order in (runs, runs[::-1]):
+            for name, cl in order:
+                lib = libs[name]
+
+                def call():
+                    rc = lib.zs3_mmd_kernel_sum_grad(
+                        x.data_ptr(), y.data_ptr(), wx.data_ptr(), wy.data_ptr(), c, n, m, d,
+                        sigmas, len(sig), dx.data_ptr(), None, cl,
+                        torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, phase, f"{name}, cluster {cl}: launch failed ({rc})")
+
+                key = name if cl == plan["cluster"] else f"{name}, cluster {cl}"
+                t = time_ms(call, reps=20 if n <= 128 else 3, what=key)
+                times[key] = min(t, times.get(key, t))
+        if n <= 128:
+            src_t, dst_t = torch.cat([x, y, x], 1), torch.empty_like(torch.cat([x, y, x], 1))
+            times["copy of K3's bytes"] = time_ms(lambda: dst_t.copy_(src_t), what="copy")
+        result[str(shape)] = times
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit(phase=phase, cluster_default="grad_plan", best_of_2_ms=result,
+         mma_sync_tf32_tflops=mma_tflops)
+    return result
 
 
 K5_STAGES = (  # (layer, main-path input shape, planes): R101 os16 at 513x513, batch 4
@@ -1378,6 +1553,22 @@ def mmd_bounds(c, n, m, d, s):
     return out
 
 
+def k3_design_bound(c, n, m, d, s):
+    """(least time in ms, what bounds it) for K3 (dx only) in its own
+    arithmetic: the two products (2D each per pair) as three TF32 products
+    each at the TF32 tensor-core rate, the rest of a pair (5S + 8: d2, the
+    exponentials, C, K, the row sums) at the f32 rate beside them, and
+    mmd_bounds's bytes; the largest of the three."""
+    pairs = c * n * m
+    times = {
+        "bytes": 4 * c * (n * d + m * d + n + m + n * d) / HBM_BYTES_PER_S,
+        "tensor operations": pairs * 3 * 4 * d / TF32_FLOPS_PER_S,
+        "operations": pairs * (5 * s + 8) / F32_FLOPS_PER_S,
+    }
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
 def mmd_inputs(gen, c, n, m, d, empty=()):
     """Post-ReLU-like features and 0/1 masks with ~30% empty slots; the
     classes in `empty` have no real pixels."""
@@ -1440,16 +1631,22 @@ def check_k2_k3(x, y, wx, wy, what):
     }
 
 
-def phase_mmd():
+def phase_mmd(timed: bool = True):
     """K2 and K3 on the card against their plain versions (f32, TF32
-    off), the batched loss and its gradient on KernelSum against the plain
-    oracle with autograd, and times at budgets 128, 512 and 2048."""
+    off), K3's plan against the library's, the batched loss and its
+    gradient on KernelSum against the plain oracle with autograd, and
+    (when `timed`) times at budgets 128, 512 and 2048."""
     from zs3_tpu_torch.ops import mmd_kernels as mk
     from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
     from zs3_tpu_torch.ops.mmd import batched_mmd_loss
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default: f32 products
+    lib = mk._LIB.get()
+    for d in (16, 30, 64, 256, 512):
+        check(lib.zs3_mmd_grad_smem(d) == mk.grad_smem_bytes(d), "mmd kernels",
+              f"K3 shared memory at D={d}: kernel {lib.zs3_mmd_grad_smem(d)}, "
+              f"plan {mk.grad_smem_bytes(d)}")
     cases = [
         ("main path", (21, 128, 128, 256), (10, 14, 3)),
         ("budget 512", (21, 512, 512, 256), (10, 14)),
@@ -1502,6 +1699,8 @@ def phase_mmd():
     emit(phase="mmd kernels", case="batched loss and gradient, main path",
          loss=loss, plain_loss=want_loss,
          grad_max_abs_err=float((grad - want_grad).abs().max()))
+    if not timed:
+        return errors, {}
 
     timings = {}
     for budget in MMD_BUDGETS:
@@ -1509,6 +1708,7 @@ def phase_mmd():
         fake = x.clone().requires_grad_(True)
         fm = torch.ones_like(wx)
         bounds = mmd_bounds(21, budget, budget, 256, len(sig))
+        plan = mk.grad_plan(21, budget, budget, 256)
         reps = 20 if budget <= 512 else 3
         row = {"shape": [21, budget, budget, 256]}
         for name, kernel, plain in (
@@ -1524,6 +1724,12 @@ def phase_mmd():
                 "bound_by": bounds[name][1],
                 "library_ms": None,
             }
+        row["K3"]["design_bound_ms"], row["K3"]["design_bound_by"] = k3_design_bound(
+            21, budget, budget, 256, len(sig))
+        row["K3"]["host_ms"] = host_ms(
+            lambda: mk.kernel_sum_grad(x, y, wx, wy, sig, with_dwx=False))
+        row["K3"]["plan"] = {k: plan[k] for k in ("ctas", "cluster", "smem_bytes")}
+        row["K3"]["plan"]["ctas_per_sm"] = lib.zs3_mmd_grad_ctas_per_sm(256)
         # The whole loss, forward and backward, as the step runs it.
         # One call per timing: a forward and backward launches some 100
         # kernels, and a few calls fill the launch queue behind the sleep.
@@ -1540,11 +1746,16 @@ def phase_mmd():
     return errors, timings
 
 
-MMD_KERNEL_NAMES = ("kernel_sum_blocks", "kernel_sum_classes", "kernel_sum_grad_x")
+MMD_KERNEL_NAMES = ("kernel_sum_blocks", "kernel_sum_classes", "kernel_sum_grad_3xtf32")
 
 
 def mmd_kernel_ms(prof) -> float:
-    """Device ms of K2's and K3's kernels in a profile_device summary."""
+    """Device ms of K2's and K3's kernels in a profile_device summary;
+    fails unless each name of MMD_KERNEL_NAMES matched a kernel (a renamed
+    kernel would drop out of the sum)."""
+    names = [e["name"] for e in prof["kernels"]]
+    missing = [k for k in MMD_KERNEL_NAMES if not any(k in n for n in names)]
+    check(not missing, "zs3 profile", f"no profiled kernel named {missing}")
     return sum(e["device_ms"] for e in prof["kernels"]
                if any(k in e["name"] for k in MMD_KERNEL_NAMES))
 
@@ -2070,6 +2281,8 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,
             "shape": main_t["shape"],
+            **{k: v for k, v in t.items() if k not in ("kernel_ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms")},
             "budgets": {b: mmd_timings[b][key] for b in MMD_BUDGETS},
         }
 

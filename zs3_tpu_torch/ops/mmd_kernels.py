@@ -4,11 +4,16 @@ The generator's MMD needs three weighted Gaussian kernel sums per class
 (fake-fake, real-real, fake-real).  The plain version materialises the
 (N, M) distance and kernel matrices; the CUDA kernels in
 csrc/mmd_kernel_sum.cu never do: K2 computes the sums, K3 the gradient
-with respect to one side.  `KernelSum` is the autograd.Function over a
-batch of classes whose forward is K2 and whose backward launches K3 once
-for each side that needs a gradient (with the arguments swapped for y),
-as zs3_tpu's custom VJP does, and once in all when both sides are the
-same tensor.  On a CPU tensor it runs the plain
+with respect to one side.  K3 runs its two products (x.y^T and C.y) on
+the tensor cores in 3xTF32: each f32 operand becomes a TF32 high part
+and a TF32 residual, and hi.hi + hi.lo + lo.hi is accumulated in f32,
+which keeps f32's accuracy where one TF32 product would not; `grad_plan`
+lays out its launch (thread-block clusters that split the y rows when
+the x tiles alone would not fill the card).  `KernelSum` is the
+autograd.Function over a batch of classes whose forward is K2 and whose
+backward launches K3 once for each side that needs a gradient (with the
+arguments swapped for y), as zs3_tpu's custom VJP does, and once in all
+when both sides are the same tensor.  On a CPU tensor it runs the plain
 versions; on a CUDA tensor it launches the kernels or raises.
 
 `kernel_mmd_loss` and `batched_kernel_mmd_loss` assemble the sqrt-MMD
@@ -36,6 +41,20 @@ from zs3_tpu_torch.ops.mmd import (
 MAX_FEATURES = 512
 MAX_SIGMAS = 8
 
+# K3's launch (csrc/mmd_kernel_sum.cu, kernel_sum_grad_3xtf32): CTAs of
+# GRAD_THREADS threads over tiles of GRAD_ROWS x rows, walking y tiles of
+# GRAD_ROWS rows through a ring of GRAD_STAGES; features padded to panels
+# of GRAD_PANEL.
+GRAD_ROWS = 32
+GRAD_THREADS = 256
+GRAD_STAGES = 2
+GRAD_PANEL = 32
+GRAD_RED_PITCH = 40
+GRAD_SMALL_FLOATS = 6 * GRAD_ROWS
+MAX_CLUSTER = 8
+SM_COUNT = 132  # H100 SXM
+MAX_SHARED_BYTES = 232_448  # H100: dynamic shared memory one CTA may take
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _KERNEL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
 _LIB = CudaLibrary(
@@ -43,7 +62,9 @@ _LIB = CudaLibrary(
     {
         "zs3_mmd_partials": ([_I, _I], ctypes.c_int),
         "zs3_mmd_kernel_sum": (_KERNEL_ARGS, ctypes.c_int),
-        "zs3_mmd_kernel_sum_grad": (_KERNEL_ARGS, ctypes.c_int),
+        "zs3_mmd_kernel_sum_grad": (_KERNEL_ARGS[:-1] + [_I, _P], ctypes.c_int),
+        "zs3_mmd_grad_smem": ([_I], ctypes.c_int),
+        "zs3_mmd_grad_ctas_per_sm": ([_I], ctypes.c_int),
         "zs3_mmd_error_string": ([_I], ctypes.c_char_p),
     },
 )
@@ -123,6 +144,44 @@ def kernel_sum(
 kernel_sum.launches = 0
 
 
+def grad_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one K3 CTA at d features (the kernel's
+    grad_smem_bytes): alignment slack, the x tile and the y ring (d padded
+    to panels of 32, 32 rows each), the C tile's two TF32 parts, the row
+    norms, weights and partial sums, and the ring's mbarriers."""
+    dp = -(-d // GRAD_PANEL) * GRAD_PANEL
+    floats = (GRAD_ROWS * dp * (1 + GRAD_STAGES) + 2 * GRAD_ROWS * GRAD_RED_PITCH
+              + GRAD_SMALL_FLOATS)
+    return 1024 + 4 * floats + 8 * (GRAD_STAGES + 1)
+
+
+def grad_plan(c: int, n: int, m: int, d: int) -> dict:
+    """How K3 lays out a call over x (c,n,d) and y (c,m,d): a CTA owns
+    (class, tile of 32 x rows, cluster rank); the `cluster` CTAs of a tile
+    split its y tiles (rank r takes r, r + cluster, ...) and sum their
+    partial C.y in rank order through distributed shared memory, rank r
+    writing rows [32 r / cluster, 32 (r + 1) / cluster) of the tile.  The
+    cluster doubles from 1 while the CTAs fill fewer than the card's
+    SM_COUNT SMs and the y tiles allow (at most 8): 2 at (21, 128, 128,
+    256), 168 CTAs.  Raises on sizes the kernel refuses."""
+    if not 1 <= d <= MAX_FEATURES or min(c, n, m) < 1:
+        raise ValueError(f"kernel_sum_grad: bad sizes C={c} N={n} M={m} D={d}")
+    x_tiles, y_tiles = -(-n // GRAD_ROWS), -(-m // GRAD_ROWS)
+    cluster = 1
+    while c * x_tiles * cluster < SM_COUNT and 2 * cluster <= min(MAX_CLUSTER, y_tiles):
+        cluster *= 2
+    dp = -(-d // GRAD_PANEL) * GRAD_PANEL
+    smem = grad_smem_bytes(d)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"kernel_sum_grad: {smem} bytes of shared memory at D={d}")
+    return {
+        "rows": GRAD_ROWS, "x_tiles": x_tiles, "y_tiles": y_tiles, "cluster": cluster,
+        "grid": (x_tiles * cluster, c), "ctas": x_tiles * cluster * c,
+        "threads": GRAD_THREADS, "stages": GRAD_STAGES, "d_pad": dp,
+        "col_tiles_per_warp": -(-dp // 64), "smem_bytes": smem,
+    }
+
+
 def kernel_sum_grad(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -133,11 +192,13 @@ def kernel_sum_grad(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K3: the gradient of `kernel_sum` with respect to x and wx, per class:
     dx (C,N,D) = C.y - rowsum(C) x with C_ij = wx_i wy_j sum_s e_s/sigma_s,
-    dwx (C,N) = sum_j wy_j K_ij (None unless with_dwx).
+    dwx (C,N) = sum_j wy_j K_ij (None unless with_dwx).  Both products run
+    on the tensor cores in 3xTF32, laid out by `grad_plan`.
 
     Launches on the current stream; `kernel_sum_grad.launches` counts the
     calls."""
     c, n, m, d = _check(x, y, wx, wy, "kernel_sum_grad")
+    plan = grad_plan(c, n, m, d)
     sig = _sigma_array(sigmas)
     lib = _LIB.get()
     dx = torch.empty((c, n, d), dtype=torch.float32, device=x.device)
@@ -147,7 +208,7 @@ def kernel_sum_grad(
         rc = lib.zs3_mmd_kernel_sum_grad(
             x.data_ptr(), y.data_ptr(), wx.data_ptr(), wy.data_ptr(), c, n, m, d,
             sig, len(sigmas), dx.data_ptr(), None if dwx is None else dwx.data_ptr(),
-            stream,
+            plan["cluster"], stream,
         )
     _raise_on(lib, rc, "kernel_sum_grad")
     kernel_sum_grad.launches += 1
