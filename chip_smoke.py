@@ -577,6 +577,20 @@ print(json.dumps(out))
 
 
 K3_SHAPES = [[21, b, b, 256] for b in MMD_BUDGETS]  # the step's budgets, dx only
+K2_TIMES = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from zs3_tpu_torch.ops import mmd_kernels as mk
+from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+gen = torch.Generator(device="cuda").manual_seed(2)
+out = []
+for shape in json.loads(sys.argv[1]):
+    x, y, wx, wy = c.mmd_inputs(gen, *shape, (10, 14))
+    out.append(c.time_ms(lambda: mk.kernel_sum(x, y, wx, wy, sig),
+                         reps=20 if shape[1] <= 512 else 3, what=str(shape)))
+print(json.dumps(out))
+"""
 K3_TIMES = """
 import json, sys, torch
 sys.path.insert(0, ".")
@@ -620,6 +634,12 @@ def k4_against(other_root: str):
     return against(other_root, K4_TIMES, K4_BARS, "k4 against")
 
 
+def k2_against(other_root: str):
+    """K2 of this checkout against another checkout's at the step's three
+    budgets (K3_SHAPES), x against y, in turns."""
+    return against(other_root, K2_TIMES, K3_SHAPES, "k2 against")
+
+
 def k3_against(other_root: str):
     """K3 (dx only) of this checkout against another checkout's at the
     step's three budgets (K3_SHAPES), in turns."""
@@ -640,6 +660,27 @@ K3_PARTS = {
         "  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n",
         "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(v));\n"
         "  return r;\n")],
+}
+
+
+# K2's source with one part taken out or changed (k2_parts), as K3_PARTS.
+K2_PARTS = {
+    "no exponentials": [(
+        "        if (e < sig.count) k += expf(d2 * sig.coef[e]);\n",
+        "        if (e < sig.count) k += d2 * sig.coef[e];\n")],
+    "no x.y^T": [(
+        "    dot_tile_3xtf32(xy, xs, yt, dp);\n",
+        "    for (int e = 0; e < 8; ++e) xy[e / 4][e % 4] = 0.f;\n")],
+    "no x.y^T, no exponentials (the feed, norms and barriers)": [
+        ("    dot_tile_3xtf32(xy, xs, yt, dp);\n",
+         "    for (int e = 0; e < 8; ++e) xy[e / 4][e % 4] = 0.f;\n"),
+        ("        if (e < sig.count) k += expf(d2 * sig.coef[e]);\n",
+         "        if (e < sig.count) k += d2 * sig.coef[e];\n")],
+    "one TF32 product (hi.hi)": K3_PARTS["one TF32 product (hi.hi)"],
+    "split by truncation (hi = v & ~0x1fff, lo = v - hi as it is)": [(
+        "  hi = tf32(v);\n  lo = tf32(v - __uint_as_float(hi));\n",
+        "  hi = __float_as_uint(v) & 0xffffe000u;\n"
+        "  lo = __float_as_uint(v - __uint_as_float(hi));\n")],
 }
 
 
@@ -673,6 +714,40 @@ extern "C" int zs3_mma_probe(float* out, int blocks, int iters, void* stream) {
 """
 
 
+def build_source(phase: str, name: str, text: str, out_dir: str) -> str:
+    """nvcc of one source text into out_dir/name.so, as cuda_build builds
+    the kernels; the library's path."""
+    from zs3_tpu_torch.ops import cuda_build
+
+    os.makedirs(out_dir, exist_ok=True)
+    cu, so = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"{name}.so")
+    with open(cu, "w") as f:
+        f.write(text)
+    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, phase, f"{name}: {proc.stderr[-2000:]}")
+    return so
+
+
+def build_variants(phase: str, parts, out_dir: str):
+    """[(name, library)]: csrc/mmd_kernel_sum.cu with each part's
+    substitutions made, one nvcc per variant, all at once."""
+    from zs3_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "mmd_kernel_sum.cu").read_text()
+
+    def build(item):
+        i, (name, subs) = item
+        text = src
+        for old, new in subs:
+            check(old in text, phase, f"{name}: the source no longer has {old!r}")
+            text = text.replace(old, new)
+        return name, build_source(phase, f"part{i}", text, out_dir)
+
+    with ThreadPoolExecutor(len(parts)) as pool:
+        return list(pool.map(build, enumerate(parts)))
+
+
 def k3_parts():
     """What holds K3 back, on one card: K3 against copies of its source
     with one part taken out or changed (K3_PARTS), each built like the
@@ -683,42 +758,15 @@ def k3_parts():
     mma.sync TF32 rate of MMA_PROBE, four CTAs an SM.  Prints one line."""
     import ctypes
 
-    from zs3_tpu_torch.ops import cuda_build
     from zs3_tpu_torch.ops import mmd_kernels as mk
     from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
 
     phase = "k3 parts"
-    src = (cuda_build.CSRC / "mmd_kernel_sum.cu").read_text()
     out_dir = os.path.join(SCRATCH, "k3_parts")
-    os.makedirs(out_dir, exist_ok=True)
-
-    def build(item):
-        i, (name, subs) = item
-        text = src
-        for old, new in subs:
-            check(old in text, phase, f"{name}: the source no longer has {old!r}")
-            text = text.replace(old, new)
-        cu, so = os.path.join(out_dir, f"part{i}.cu"), os.path.join(out_dir, f"part{i}.so")
-        with open(cu, "w") as f:
-            f.write(text)
-        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
-                              capture_output=True, text=True)
-        check(proc.returncode == 0, phase, f"{name}: {proc.stderr[-2000:]}")
-        return name, so
-
-    def build_probe():
-        cu, so = os.path.join(out_dir, "mma_probe.cu"), os.path.join(out_dir, "mma_probe.so")
-        with open(cu, "w") as f:
-            f.write(MMA_PROBE)
-        proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, cu],
-                              capture_output=True, text=True)
-        check(proc.returncode == 0, phase, f"mma probe: {proc.stderr[-2000:]}")
-        return so
-
     parts = [("kernel", [])] + list(K3_PARTS.items())
-    with ThreadPoolExecutor(len(parts) + 1) as pool:  # one nvcc per variant
-        probe = pool.submit(build_probe)
-        built = list(pool.map(build, enumerate(parts)))
+    with ThreadPoolExecutor(2) as pool:  # the probe beside the variants' nvccs
+        probe = pool.submit(build_source, phase, "mma_probe", MMA_PROBE, out_dir)
+        built = build_variants(phase, parts, out_dir)
         probe_so = probe.result()
     lib = ctypes.CDLL(probe_so)
     lib.zs3_mma_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -767,6 +815,74 @@ def k3_parts():
     shutil.rmtree(out_dir, ignore_errors=True)
     emit(phase=phase, cluster_default="grad_plan", best_of_2_ms=result,
          mma_sync_tf32_tflops=mma_tflops)
+    return result
+
+
+def k2_parts():
+    """What holds K2 back, on one card: K2 against copies of its source
+    with one part taken out or changed (K2_PARTS), each built like the
+    kernel and called through its C entry point, timed in turns (forward,
+    then reverse) at (21,128,128,256) and (21,2048,2048,256), x against y;
+    at (21,128,128,256) also the kernel at other splits, the symmetric
+    call on x against itself, and a device copy of the bytes K2 must read
+    there (x and y); beside each time, the largest relative error of the
+    variant's sums against the plain version.  Prints one line."""
+    import ctypes
+
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+
+    phase = "k2 parts"
+    out_dir = os.path.join(SCRATCH, "k2_parts")
+    libs = {}
+    for name, so in build_variants(phase, [("kernel", [])] + list(K2_PARTS.items()), out_dir):
+        lib = ctypes.CDLL(so)
+        fn = lib.zs3_mmd_kernel_sum
+        fn.argtypes, fn.restype = mk._LIB._functions["zs3_mmd_kernel_sum"]
+        libs[name] = lib
+    sigmas = (ctypes.c_float * len(sig))(*sig)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    result, rel_errors = {}, {}
+    for shape in ([21, 128, 128, 256], [21, 2048, 2048, 256]):
+        c, n, m, d = shape
+        x, y, wx, wy = mmd_inputs(gen, c, n, m, d, (10, 14))
+        out = torch.empty(c, device="cuda")
+        plan = mk.sum_plan(c, n, m, d)
+        runs = [(name, plan["split"], False) for name in libs]
+        if n <= 128:
+            runs += [("kernel", k, False) for k in (4, 12, 16) if k != plan["split"]]
+            runs += [("kernel", mk.sum_plan(c, n, m, d, True)["split"], True)]
+        tickets = torch.zeros(c, dtype=torch.int32, device="cuda")
+        partials = torch.empty(c * max(k for _, k, _ in runs), device="cuda")
+        want = {sym: mk.kernel_sum_reference(x, x if sym else y, wx, wx if sym else wy, sig)
+                for sym in (False, True)}
+        times, errors = {}, {}
+        for order in (runs, runs[::-1]):
+            for name, k, sym in order:
+                lib = libs[name]
+                a, wa = (x, wx) if sym else (y, wy)
+
+                def call():
+                    rc = lib.zs3_mmd_kernel_sum(
+                        x.data_ptr(), a.data_ptr(), wx.data_ptr(), wa.data_ptr(), c, n, m, d,
+                        sigmas, len(sig), k, int(sym), tickets.data_ptr(), partials.data_ptr(),
+                        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, phase, f"{name}, split {k}: launch failed ({rc})")
+
+                key = name if k == plan["split"] and not sym else f"{name}, split {k}"
+                key += ", symmetric (x is y)" if sym else ""
+                t = time_ms(call, reps=20 if n <= 128 else 3, what=key)
+                times[key] = min(t, times.get(key, t))
+                errors[key] = float(((out - want[sym]).abs()
+                                      / want[sym].abs().clamp(min=1e-30)).max())
+        if n <= 128:
+            src_t = torch.cat([x, y], 1)
+            dst_t = torch.empty_like(src_t)
+            times["copy of K2's bytes"] = time_ms(lambda: dst_t.copy_(src_t), what="copy")
+        result[str(shape)] = times
+        rel_errors[str(shape)] = errors
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit(phase=phase, split_default="sum_plan", best_of_2_ms=result, max_rel_err=rel_errors)
     return result
 
 
@@ -1569,6 +1685,39 @@ def k3_design_bound(c, n, m, d, s):
     return 1e3 * times[by], by
 
 
+SFU_EXP_PER_SM_CLOCK = 16  # H100: MUFU ex2 results an SM gives each clock
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+    if not hasattr(sm_clock_hz, "hz"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        sm_clock_hz.hz = 1e6 * float(smi)
+    return sm_clock_hz.hz
+
+
+def k2_design_bound(c, n, m, d, s):
+    """(least time in ms, what bounds it) for K2 in its own arithmetic: the
+    x.y^T product (2D per pair) as three TF32 products at the TF32
+    tensor-core rate, the S exponentials a pair on the SFU (16 an SM a
+    clock, at the card's highest SM clock), the rest of a pair (d2, the
+    scales and sums, the weights: 2S + 6) at the f32 rate, and
+    mmd_bounds's bytes; the largest of the four."""
+    pairs = c * n * m
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {
+        "bytes": 4 * c * (n * d + m * d + n + m + 1) / HBM_BYTES_PER_S,
+        "tensor operations": pairs * 3 * 2 * d / TF32_FLOPS_PER_S,
+        "exponentials": pairs * s / (SFU_EXP_PER_SM_CLOCK * sms * sm_clock_hz()),
+        "operations": pairs * (2 * s + 6) / F32_FLOPS_PER_S,
+    }
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
 def mmd_inputs(gen, c, n, m, d, empty=()):
     """Post-ReLU-like features and 0/1 masks with ~30% empty slots; the
     classes in `empty` have no real pixels."""
@@ -1622,7 +1771,19 @@ def check_k2_k3(x, y, wx, wy, what):
     dx2, dwx2 = mk.kernel_sum_grad(x, y, wx, wy, sig)
     check(torch.equal(again, got) and torch.equal(dx2, dx) and torch.equal(dwx2, dwx),
           phase, f"{what}: a second call gave other bits")
+    sym = {}
+    if x is y and wx is wy:  # K2 over the tile pairs a <= b, as KernelSum calls it
+        half = mk.kernel_sum(x, y, wx, wy, sig, symmetric=True)
+        half2 = mk.kernel_sum(x, y, wx, wy, sig, symmetric=True)
+        torch.cuda.synchronize()
+        check(bool(((half - want).abs() <= 1e-4 * want.abs()).all()), phase,
+              f"{what}: symmetric K2 {half.tolist()[:4]} vs plain {want.tolist()[:4]}")
+        check(torch.equal(half, half2), phase, f"{what}: a second symmetric call gave other bits")
+        sym = {"k2_symmetric_max_abs_err": float((half - want).abs().max()),
+               "k2_symmetric_max_rel_err":
+                   float(((half - want).abs() / want.abs().clamp(min=1e-30)).max())}
     return {
+        **sym,
         "k2_max_abs_err": float((got - want).abs().max()),
         "k2_max_rel_err": float(((got - want).abs() / want.abs().clamp(min=1e-30)).max()),
         "k3_dx_max_abs_err": float(err_dx.max()),
@@ -1633,9 +1794,10 @@ def check_k2_k3(x, y, wx, wy, what):
 
 def phase_mmd(timed: bool = True):
     """K2 and K3 on the card against their plain versions (f32, TF32
-    off), K3's plan against the library's, the batched loss and its
-    gradient on KernelSum against the plain oracle with autograd, and
-    (when `timed`) times at budgets 128, 512 and 2048."""
+    off), K2's symmetric call where x is y, K2's and K3's plans against
+    the library's, the batched loss and its gradient on KernelSum against
+    the plain oracle with autograd, and (when `timed`) times at budgets
+    128, 512 and 2048."""
     from zs3_tpu_torch.ops import mmd_kernels as mk
     from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
     from zs3_tpu_torch.ops.mmd import batched_mmd_loss
@@ -1643,10 +1805,21 @@ def phase_mmd(timed: bool = True):
     gen = torch.Generator(device="cuda").manual_seed(2)
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default: f32 products
     lib = mk._LIB.get()
+    plans = {}
     for d in (16, 30, 64, 256, 512):
         check(lib.zs3_mmd_grad_smem(d) == mk.grad_smem_bytes(d), "mmd kernels",
               f"K3 shared memory at D={d}: kernel {lib.zs3_mmd_grad_smem(d)}, "
               f"plan {mk.grad_smem_bytes(d)}")
+        # sum_plan's shared memory and CTAs an SM against the kernel's own.
+        plan = mk.sum_plan(21, 128, 128, d)
+        plans[d] = {"plan_smem_bytes": plan["smem_bytes"],
+                    "kernel_smem_bytes": lib.zs3_mmd_sum_smem(d),
+                    "plan_ctas_per_sm": plan["ctas_per_sm"],
+                    "occupancy_ctas_per_sm": lib.zs3_mmd_sum_ctas_per_sm(d)}
+        check(plans[d]["plan_smem_bytes"] == plans[d]["kernel_smem_bytes"]
+              and plans[d]["plan_ctas_per_sm"] == plans[d]["occupancy_ctas_per_sm"],
+              "mmd kernels", f"K2 at D={d}: plan against kernel {plans[d]}")
+    emit(phase="mmd kernels", case="K2's sum_plan against the kernel", by_d=plans)
     cases = [
         ("main path", (21, 128, 128, 256), (10, 14, 3)),
         ("budget 512", (21, 512, 512, 256), (10, 14)),
@@ -1670,6 +1843,10 @@ def phase_mmd(timed: bool = True):
     x, _, wx, _ = mmd_inputs(gen, 4, 96, 96, 64)
     errors["x is y"] = check_k2_k3(x, x, wx, wx, "x is y")
     emit(phase="mmd kernels", case="x is y (zero diagonal)", **errors["x is y"])
+    x, _, wx, _ = mmd_inputs(gen, 21, 128, 128, 256, (10, 14, 3))
+    errors["main path, x is y"] = check_k2_k3(x, x, wx, wx, "main path, x is y")
+    emit(phase="mmd kernels", case="main path, x is y (the fake-fake and real-real sums)",
+         shape=[21, 128, 128, 256], **errors["main path, x is y"])
 
     # The step's loss and its gradient with respect to the generated side.
     fake, real, _, rmask = mmd_inputs(gen, 21, 128, 128, 256, (10, 14, 3))
@@ -1724,6 +1901,23 @@ def phase_mmd(timed: bool = True):
                 "bound_by": bounds[name][1],
                 "library_ms": None,
             }
+        row["K2"]["design_bound_ms"], row["K2"]["design_bound_by"] = k2_design_bound(
+            21, budget, budget, 256, len(sig))
+        row["K2"]["host_ms"] = host_ms(lambda: mk.kernel_sum(x, y, wx, wy, sig))
+        k2_plan = mk.sum_plan(21, budget, budget, 256)
+        row["K2"]["plan"] = {k: k2_plan[k] for k in ("split", "ctas", "pairs_per_cta",
+                                                     "smem_bytes")}
+        row["K2"]["plan"]["ctas_per_sm"] = lib.zs3_mmd_sum_ctas_per_sm(256)
+        # x against itself, as the fake-fake and real-real sums: over the
+        # tile pairs a <= b (as KernelSum calls it), and over every pair.
+        row["K2"]["x_is_y"] = {
+            "symmetric_ms": time_ms(lambda: mk.kernel_sum(x, x, wx, wx, sig, symmetric=True),
+                                    reps=reps, what=f"K2 symmetric {budget}"),
+            "every_pair_ms": time_ms(lambda: mk.kernel_sum(x, x, wx, wx, sig),
+                                     reps=reps, what=f"K2 x is y {budget}"),
+            "symmetric_plan": {k: v for k, v in mk.sum_plan(21, budget, budget, 256, True).items()
+                               if k in ("split", "ctas", "pairs_per_cta")},
+        }
         row["K3"]["design_bound_ms"], row["K3"]["design_bound_by"] = k3_design_bound(
             21, budget, budget, 256, len(sig))
         row["K3"]["host_ms"] = host_ms(
@@ -1746,7 +1940,7 @@ def phase_mmd(timed: bool = True):
     return errors, timings
 
 
-MMD_KERNEL_NAMES = ("kernel_sum_blocks", "kernel_sum_classes", "kernel_sum_grad_3xtf32")
+MMD_KERNEL_NAMES = ("kernel_sum_3xtf32", "kernel_sum_grad_3xtf32")
 
 
 def mmd_kernel_ms(prof) -> float:

@@ -11,7 +11,7 @@
 //   with d2_cij = max(|x_ci|^2 + |y_cj|^2 - 2 x_ci.y_cj, 0),
 //        K_cij  = sum_s exp(-d2_cij / (2 sigma_s)),
 //        C_cij  = wx[c,i] wy[c,j] sum_s exp(-d2_cij / (2 sigma_s)) / sigma_s
-//   for x (C,N,D), y (C,M,D), wx (C,N), wy (C,M) f32, D <= 512.
+//   for x (C,N,D), y (C,M,D), wx (C,N), wy (C,M) f32, D <= 512, S <= 8.
 //
 // Bound on an H100 SXM.  With S=6 sigmas, one K2 call does
 // C*N*M*(2D+3S+6) f32 operations (the dot, d2, S exponentials with their
@@ -19,26 +19,29 @@
 // ZS3 step's shape C=21, N=M=128, D=256, or 2.75 us at 67 TFLOP/s, on
 // 5.5 MB of input (1.6 us at 3.35 TB/s): operations.  One K3 call does
 // C*N*M*(4D+5S+8) = 365 MFLOP on 8.3 MB, 5.4 us if every operation ran
-// outside the tensor cores.  K3 runs its two products (96% of those
-// operations) on the TF32 tensor cores in 3xTF32, three products of
-// TF32 parts (6D per pair at 495 TFLOP/s) with f32 accumulation, and
-// the rest (5S+8 per pair) at 67 TFLOP/s beside them: 2.1 us of tensor
-// operations against 2.5 us of bytes at that shape, so bytes bound it
-// there, and the tensor operations at 2048 x 2048 rows a class.  One TF32 product
-// alone would not compute the same function (10 mantissa bits);
-// hi.hi + hi.lo + lo.hi keeps f32's accuracy.
+// outside the tensor cores.  Both kernels run their products (x.y^T, and
+// K3's C.y) on the TF32 tensor cores in 3xTF32, three products of TF32
+// parts (6D per pair and product at 495 TFLOP/s) with f32 accumulation,
+// and the rest beside them at 67 TFLOP/s, with the S exponentials on the
+// SFU (16 an SM a clock, 4.2 T/s at 1.98 GHz).  In that arithmetic K2
+// needs 1.07 us of tensor operations, 0.49 us of exponentials and 0.09 us
+// of the rest at the step's shape, against 1.65 us of bytes: bytes bound
+// it there, and the tensor operations (0.27 ms) at 2048 x 2048 rows a
+// class.  K3 needs 2.1 us of tensor operations against 2.5 us of bytes
+// at the step's shape, and is bound by the tensor operations at 2048.
+// One TF32 product alone would not compute the same function (10 mantissa
+// bits); hi.hi + hi.lo + lo.hi keeps f32's accuracy.
 //
-// K2's design: the N x M matrix never reaches device memory.  One block
-// of 256 threads owns a (class, tile of 32 x rows) pair and loops over
-// tiles of 32 y rows; both tiles sit in dynamic shared memory with a row
-// pitch of 1 mod 32 words, so the 16 rows a warp reads at one depth fall
-// in 16 banks.  Row norms are taken once per tile with a fixed shuffle
-// tree.  Each thread forms a 2x2 block of the 32x32 dot tile with f32
-// FMAs, then d2, the exponentials (expf, not __expf) and the weights.  K2
-// reduces each block to one partial in a fixed order and a second kernel
-// sums each class's partials in a fixed order: no float atomics, so two
-// calls give the same bits.  K3's design is at its kernel below.  Rows
-// past N or M load as zeros with weight 0 and are never written.  The
+// Both kernels keep the N x M matrix out of device memory.  Tiles of 32
+// rows sit in shared memory as 128-byte panels of 32 features under the
+// 128-byte swizzle (16-byte chunk ^ row % 8), the layout a TMA box with
+// CU_TENSOR_MAP_SWIZZLE_128B writes; tiles arrive by TMA (a 3-D tensor map
+// over (D, rows, C), so rows past N or M and features past D land as
+// zeros, and their weights load as 0) into an `mbarrier` ring, or, when
+// D % 4 != 0 or a base is not 16-byte aligned, by the threads into the
+// same layout.  Norms, d2, the exponentials (expf, not __expf) and the
+// weights stay in exact f32.  No float atomics: repeated calls give the
+// same bits.  K2's design is at its kernel below, K3's at its own.  The
 // TPU kernel's row padding to 1024 and feature padding to 128 (its
 // (8,128) tiling) and its sequential SMEM accumulator are gone.
 
@@ -52,8 +55,8 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kTile = 32;      // x rows per block, y rows per inner step
-constexpr int kThreads = 256;  // 16x16 threads, 2x2 dot entries each
+constexpr int kTile = 32;      // rows of an x or y tile
+constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxSigmas = 8;
 constexpr int kMaxD = 512;
 
@@ -63,207 +66,11 @@ struct Sigmas {
   float inv[kMaxSigmas];   // 1 / sigma_s
 };
 
-__host__ __device__ inline int row_pitch(int d) { return (d + 31) / 32 * 32 + 1; }
-
-// Rows [row0, row0 + kTile) of a (rows, D) matrix into shared memory at
-// `pitch`; rows past the end are zeros.  Weights likewise, 0 past the end.
-// With `vec4` (D a multiple of 4, 16-byte aligned rows) each thread moves
-// 16 bytes a load; the loop is unrolled so several loads are in flight.
-__device__ void load_tile(float* dst, float* wdst, const float* __restrict__ src,
-                          const float* __restrict__ w, int row0, int rows, int D,
-                          int pitch, bool vec4) {
-  if (vec4) {
-    const int d4 = D / 4;
-#pragma unroll 8
-    for (int e = threadIdx.x; e < kTile * d4; e += kThreads) {
-      const int r = e / d4;
-      const int k = (e - r * d4) * 4;
-      const float4 v =
-          row0 + r < rows
-              ? *reinterpret_cast<const float4*>(src + static_cast<long long>(row0 + r) * D + k)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-      float* out = dst + r * pitch + k;
-      out[0] = v.x;
-      out[1] = v.y;
-      out[2] = v.z;
-      out[3] = v.w;
-    }
-  } else {
-#pragma unroll 8
-    for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-      const int r = e / D;
-      const int k = e - r * D;
-      dst[r * pitch + k] =
-          row0 + r < rows ? src[static_cast<long long>(row0 + r) * D + k] : 0.f;
-    }
-  }
-  if (threadIdx.x < kTile) {
-    const int r = row0 + threadIdx.x;
-    wdst[threadIdx.x] = r < rows ? w[r] : 0.f;
-  }
-}
-
-// norms[r] = |tile row r|^2, each row summed by one warp in a fixed order.
-__device__ void row_norms(float* norms, const float* tile, int D, int pitch) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    float s = 0.f;
-    for (int k = lane; k < D; k += 32) {
-      const float v = tile[r * pitch + k];
-      s = fmaf(v, v, s);
-    }
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) norms[r] = s;
-  }
-}
-
-// The thread's 2x2 entries (rows ty, ty+16; columns tx, tx+16) of the
-// x-tile . y-tile^T product.
-__device__ void dot_2x2(float acc[2][2], const float* xs, const float* ys, int D,
-                        int pitch, int ty, int tx) {
-  acc[0][0] = acc[0][1] = acc[1][0] = acc[1][1] = 0.f;
-  const float* x0 = xs + ty * pitch;
-  const float* x1 = xs + (ty + 16) * pitch;
-  const float* y0 = ys + tx * pitch;
-  const float* y1 = ys + (tx + 16) * pitch;
-#pragma unroll 8
-  for (int k = 0; k < D; ++k) {
-    const float a0 = x0[k], a1 = x1[k], b0 = y0[k], b1 = y1[k];
-    acc[0][0] = fmaf(a0, b0, acc[0][0]);
-    acc[0][1] = fmaf(a0, b1, acc[0][1]);
-    acc[1][0] = fmaf(a1, b0, acc[1][0]);
-    acc[1][1] = fmaf(a1, b1, acc[1][1]);
-  }
-}
-
 __device__ __forceinline__ float sq_dist(float x2, float y2, float xy) {
   return fmaxf(x2 + y2 - 2.f * xy, 0.f);
 }
 
-// Shared memory of either kernel: the two tiles, then small arrays.
-struct Smem {
-  float* xs;
-  float* ys;
-  float* x2;
-  float* y2;
-  float* wx;
-  float* wy;
-  float* extra;
-};
-
-__device__ Smem carve(float* base, int pitch) {
-  Smem s;
-  s.xs = base;
-  s.ys = s.xs + kTile * pitch;
-  s.x2 = s.ys + kTile * pitch;
-  s.y2 = s.x2 + kTile;
-  s.wx = s.y2 + kTile;
-  s.wy = s.wx + kTile;
-  s.extra = s.wy + kTile;
-  return s;
-}
-
-size_t smem_bytes(int D, int extra_floats) {
-  return sizeof(float) *
-         (static_cast<size_t>(2 * kTile) * row_pitch(D) + 4 * kTile + extra_floats);
-}
-
-// ---- K2 ------------------------------------------------------------------
-
-constexpr int kSumExtra = kThreads;  // per-thread partials for the block sum
-
-__global__ void __launch_bounds__(kThreads)
-kernel_sum_blocks(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ wx, const float* __restrict__ wy,
-                  int N, int M, int D, bool vec4, Sigmas sig,
-                  float* __restrict__ partials) {
-  extern __shared__ float smem[];
-  const int pitch = row_pitch(D);
-  Smem s = carve(smem, pitch);
-  const int c = blockIdx.y;
-  const int x0 = blockIdx.x * kTile;
-  const float* xc = x + static_cast<long long>(c) * N * D;
-  const float* yc = y + static_cast<long long>(c) * M * D;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-
-  load_tile(s.xs, s.wx, xc, wx + static_cast<long long>(c) * N, x0, N, D, pitch, vec4);
-  __syncthreads();
-  row_norms(s.x2, s.xs, D, pitch);
-
-  float total = 0.f;
-  for (int y0 = 0; y0 < M; y0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(s.ys, s.wy, yc, wy + static_cast<long long>(c) * M, y0, M, D, pitch, vec4);
-    __syncthreads();
-    row_norms(s.y2, s.ys, D, pitch);
-    __syncthreads();
-    float acc[2][2];
-    dot_2x2(acc, s.xs, s.ys, D, pitch, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int i = ty + 16 * a;
-        const int j = tx + 16 * b;
-        const float d2 = sq_dist(s.x2[i], s.y2[j], acc[a][b]);
-        float k = 0.f;
-        for (int q = 0; q < sig.count; ++q) k += expf(d2 * sig.coef[q]);
-        total += (s.wx[i] * k) * s.wy[j];
-      }
-    }
-  }
-
-  float* red = s.extra;
-  red[threadIdx.x] = total;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) partials[static_cast<long long>(c) * gridDim.x + blockIdx.x] = red[0];
-}
-
-// out[c] = sum of class c's block partials, in block order.
-__global__ void kernel_sum_classes(const float* __restrict__ partials, int blocks,
-                                   int C, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partials[static_cast<long long>(c) * blocks + b];
-  out[c] = s;
-}
-
-// ---- K3 ------------------------------------------------------------------
-//
-// One CTA of 256 threads owns (class, tile of 32 x rows, cluster rank) and
-// walks the y tiles of 32 rows that its rank takes (rank, rank + cluster,
-// ...).  Both tiles sit in shared memory as 128-byte panels of 32 features
-// under the 128-byte swizzle (16-byte chunk ^ row % 8), the layout a TMA
-// box with CU_TENSOR_MAP_SWIZZLE_128B writes.  Per y tile:
-//   1. x.y^T on mma.sync.m16n8k8 in 3xTF32: warp w forms rows 16 (w & 1),
-//      columns 16 ((w >> 1) & 1) over half of the depth steps of each
-//      panel (w >> 2); the two halves meet in shared memory (`red`) and
-//      are added in order.  Each operand is split as it is loaded.
-//   2. Each thread takes d2, the exponentials, C and K for 4 pairs in exact
-//      f32 and keeps its rows' partial rowsum(C) and sum_j wy_j K in
-//      registers; C goes back to `red`, split into its TF32 high part and
-//      residual.
-//   3. C.y on mma.sync in 3xTF32: warp w owns 8-column tiles w, w + 8, ...
-//      of the 32 x D product, accumulated in registers over the walk.  The
-//      depth axis (j) is read in the order (0, 2, 4, 6, 1, 3, 5, 7) of each
-//      8, so C's fragment is two 8-byte loads and the y fragment is
-//      conflict-free under the same swizzle as step 1.
-// y tiles arrive by TMA into a ring of kStages (a 3-D tensor map over
-// (D, rows, C), so rows past M and features past D land as zeros) while the
-// previous tile computes; without a map (D % 4 != 0 or an unaligned base)
-// the threads load each tile themselves into the same layout.  At the end
-// the cluster's CTAs leave their partial C.y, rowsum and dwx in shared
-// memory; rank r sums rows [32 r / cluster, 32 (r + 1) / cluster) over the
-// ranks in rank order through distributed shared memory and writes dx and
-// dwx.  No float atomics and no scratch in device memory: repeated calls
-// give the same bits.
+// ---- Tiles, TMA and 3xTF32 products (K2 and K3) ------------------------------
 
 constexpr int kPanel = 32;                    // features in one 128-byte panel row
 constexpr int kPanelFloats = kTile * kPanel;  // one panel of a tile
@@ -460,6 +267,244 @@ __device__ __forceinline__ void store_dot_tile(float* red, const float (&acc)[2]
     *reinterpret_cast<float2*>(out + 8 * kRedPitch + col) = make_float2(acc[n][2], acc[n][3]);
   }
 }
+
+// ---- K2 ------------------------------------------------------------------
+//
+// A class's work is its tile pairs (x tile a, y tile b) of 32 x 32 rows, in
+// row-major order: every pair, or, for a symmetric call (x is y and wx is
+// wy), the pairs a <= b, each off the diagonal counted twice (the same
+// function summed in another order; the reference computes every pair).
+// Its output is one scalar, so the pairs can be split across CTAs with no
+// D-wide partial to combine: CTA (k, c) of a grid (split, C) takes pairs
+// [P k / split, P (k + 1) / split) of class c (ops/mmd_kernels.py::
+// sum_plan picks `split` to fill the card).  Per pair:
+//   1. the y tile's norms, then x.y^T on mma.sync.m16n8k8 in 3xTF32 as K3
+//      takes it (dot_tile_3xtf32: two depth halves meet in `red`);
+//   2. each thread takes d2, the S exponentials and the weights of 4
+//      pairs of rows in exact f32 and adds them to its running sum.
+// The x tile is loaded when the walk reaches a new a; the y tiles arrive
+// by TMA into a ring of kStages, each tile's load issued as soon as the
+// tile two ahead of it is read, so two barriers a pair remain; y's norms
+// and weights are double-buffered by stage for the same reason.  At the
+// end the CTA's sum (a fixed shuffle tree, then the warps in order) goes
+// to partials[c][k]; the CTA that takes the last integer ticket of its
+// class sums the class's partials in a fixed order, writes out[c] and
+// resets the ticket to 0 for the next call.  One launch, no float
+// atomics, no memset.
+
+// |x|^2, wx, kStages of |y|^2 and of wy, the warps' sums.
+constexpr int kSumSmallFloats = (2 + 2 * kStages) * kTile + kWarps;
+
+// Dynamic shared memory of one K2 CTA: alignment slack, the x tile and the
+// y ring, `red`, the small arrays and the mbarriers (x, then the ring).
+__host__ __device__ inline size_t sum_smem_bytes(int D) {
+  const size_t dp = pad_features(D);
+  return 1024 + sizeof(float) * (kTile * dp * (1 + kStages) + 2 * kTile * kRedPitch +
+                                 kSumSmallFloats) + 8 * (kStages + 1);
+}
+
+// Pair p of a class's walk over ty tiles a side: (a, b) row-major over
+// every pair, or over a <= b when symmetric.
+__device__ inline void pair_at(long long p, int ty, int sym, int& a, int& b) {
+  if (!sym) {
+    a = static_cast<int>(p / ty);
+    b = static_cast<int>(p % ty);
+    return;
+  }
+  a = 0;
+  while (p >= ty - a) {
+    p -= ty - a;
+    ++a;
+  }
+  b = a + static_cast<int>(p);
+}
+
+__device__ __forceinline__ void next_pair(int& a, int& b, int ty, int sym) {
+  if (++b == ty) {
+    ++a;
+    b = sym ? a : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+kernel_sum_3xtf32(const __grid_constant__ CUtensorMap tm_x,
+                  const __grid_constant__ CUtensorMap tm_y, const float* __restrict__ x,
+                  const float* __restrict__ y, const float* __restrict__ wx,
+                  const float* __restrict__ wy, int N, int M, int D, int tma, int sym, Sigmas sig,
+                  unsigned* __restrict__ tickets,
+                  float* __restrict__ partials, float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int dp = pad_features(D);
+  const int panels = dp / kPanel;
+  float* ys = xs + kTile * dp;             // the ring, kStages tiles
+  float* red = ys + kStages * kTile * dp;  // two (32, kRedPitch) halves of x.y^T
+  float* x2 = red + 2 * kTile * kRedPitch;
+  float* wxs = x2 + kTile;
+  float* y2 = wxs + kTile;            // kStages of them
+  float* wys = y2 + kStages * kTile;  // kStages of them
+  float* wsum = wys + kStages * kTile;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wsum + kWarps);
+
+  const int split = static_cast<int>(gridDim.x);
+  const int c = blockIdx.y;
+  const int ty = (M + kTile - 1) / kTile;
+  const long long pairs =
+      sym ? static_cast<long long>(ty) * (ty + 1) / 2
+          : static_cast<long long>((N + kTile - 1) / kTile) * ty;
+  const long long p0 = pairs * blockIdx.x / split;
+  const int mine = static_cast<int>(pairs * (blockIdx.x + 1) / split - p0);
+  const float* xc = x + static_cast<long long>(c) * N * D;
+  const float* yc = y + static_cast<long long>(c) * M * D;
+  const float* wxc = wx + static_cast<long long>(c) * N;
+  const float* wyc = wy + static_cast<long long>(c) * M;
+
+  int a, b;  // the pair this iteration takes
+  pair_at(p0, ty, sym, a, b);
+  int la = a, lb = b;  // the next pair whose y tile thread 0 loads
+  if (tma && threadIdx.x == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    tma_tile(xs, &tm_x, a * kTile, c, panels, &bars[0]);
+    for (int it = 0; it < min(kStages, mine); ++it) {
+      tma_tile(ys + it * kTile * dp, &tm_y, lb * kTile, c, panels, &bars[1 + it]);
+      next_pair(la, lb, ty, sym);
+    }
+  }
+  // Thread j < 32 holds wy of row j of the next y tile, loaded a tile ahead.
+  float w_next = threadIdx.x < kTile && b * kTile + threadIdx.x < M
+                     ? wyc[b * kTile + threadIdx.x] : 0.f;
+  int xa = -1;  // the x tile in xs
+  uint32_t x_phase = 0;
+  const int i = threadIdx.x / 8;  // the x row of this thread's 4 pairs of rows
+  float total = 0.f;
+  for (int it = 0; it < mine; ++it) {
+    const int s = it % kStages;
+    if (a != xa) {
+      __syncthreads();  // the barriers are set; every warp is past its reads of xs, x2, wxs
+      if (tma) {
+        if (threadIdx.x == 0 && xa >= 0) tma_tile(xs, &tm_x, a * kTile, c, panels, &bars[0]);
+      } else {
+        plain_tile(xs, xc, a * kTile, N, D, dp);
+      }
+      if (threadIdx.x < kTile) {
+        const int r = a * kTile + threadIdx.x;
+        wxs[threadIdx.x] = r < N ? wxc[r] : 0.f;
+      }
+      if (tma) {
+        mbar_wait(&bars[0], x_phase);
+        x_phase ^= 1;
+      } else {
+        __syncthreads();
+      }
+      tile_norms(x2, xs, dp);
+      xa = a;
+    }
+    int na = a, nb = b;
+    next_pair(na, nb, ty, sym);
+    const float w_this = w_next;
+    if (threadIdx.x < kTile && it + 1 < mine) {
+      const int r = nb * kTile + threadIdx.x;
+      w_next = r < M ? wyc[r] : 0.f;
+    }
+    float* yt = ys + s * kTile * dp;
+    if (tma) {
+      mbar_wait(&bars[1 + s], (it / kStages) & 1);
+    } else {
+      plain_tile(yt, yc, b * kTile, M, D, dp);
+      __syncthreads();
+    }
+    float* y2t = y2 + s * kTile;
+    float* wyt = wys + s * kTile;
+    if (threadIdx.x < kTile) wyt[threadIdx.x] = w_this;
+    tile_norms(y2t, yt, dp);
+    float xy[2][4];
+    dot_tile_3xtf32(xy, xs, yt, dp);
+    __syncthreads();  // norms and weights written; this stage read; the last pair's sums done
+    if (tma && threadIdx.x == 0 && it + kStages < mine) {
+      tma_tile(yt, &tm_y, lb * kTile, c, panels, &bars[1 + s]);
+      next_pair(la, lb, ty, sym);
+    }
+    store_dot_tile(red, xy);
+    __syncthreads();
+    const float xi2 = x2[i];
+    const float wi = sym && a != b ? 2.f * wxs[i] : wxs[i];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = threadIdx.x % 8 + 8 * q;
+      const int at = i * kRedPitch + j;
+      const float d2 = sq_dist(xi2, y2t[j], red[at] + red[kTile * kRedPitch + at]);
+      float k = 0.f;
+#pragma unroll
+      for (int e = 0; e < kMaxSigmas; ++e) {
+        if (e < sig.count) k += expf(d2 * sig.coef[e]);
+      }
+      total += (wi * k) * wyt[j];
+    }
+    a = na;
+    b = nb;
+  }
+
+  // The CTA's sum in a fixed order, then the class's, by its last CTA.
+  for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(0xffffffffu, total, off);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) wsum[warp] = total;
+  __syncthreads();
+  if (warp != 0) return;
+  int last = 0;
+  if (lane == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += wsum[w];
+    partials[static_cast<long long>(c) * split + blockIdx.x] = s;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicAdd(&tickets[c], 1u) == static_cast<unsigned>(split - 1);
+  }
+  last = __shfl_sync(0xffffffffu, last, 0);
+  if (!last) return;
+  __threadfence();  // every partial of the class is visible
+  float s = 0.f;
+  const float* class_partials = partials + static_cast<long long>(c) * split;
+  for (int q = lane; q < split; q += 32) s += __ldcg(class_partials + q);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    out[c] = s;
+    tickets[c] = 0;
+  }
+}
+
+// ---- K3 ------------------------------------------------------------------
+//
+// One CTA of 256 threads owns (class, tile of 32 x rows, cluster rank) and
+// walks the y tiles of 32 rows that its rank takes (rank, rank + cluster,
+// ...).  Both tiles sit in shared memory as 128-byte panels of 32 features
+// under the 128-byte swizzle (16-byte chunk ^ row % 8), the layout a TMA
+// box with CU_TENSOR_MAP_SWIZZLE_128B writes.  Per y tile:
+//   1. x.y^T on mma.sync.m16n8k8 in 3xTF32: warp w forms rows 16 (w & 1),
+//      columns 16 ((w >> 1) & 1) over half of the depth steps of each
+//      panel (w >> 2); the two halves meet in shared memory (`red`) and
+//      are added in order.  Each operand is split as it is loaded.
+//   2. Each thread takes d2, the exponentials, C and K for 4 pairs in exact
+//      f32 and keeps its rows' partial rowsum(C) and sum_j wy_j K in
+//      registers; C goes back to `red`, split into its TF32 high part and
+//      residual.
+//   3. C.y on mma.sync in 3xTF32: warp w owns 8-column tiles w, w + 8, ...
+//      of the 32 x D product, accumulated in registers over the walk.  The
+//      depth axis (j) is read in the order (0, 2, 4, 6, 1, 3, 5, 7) of each
+//      8, so C's fragment is two 8-byte loads and the y fragment is
+//      conflict-free under the same swizzle as step 1.
+// y tiles arrive by TMA into a ring of kStages (a 3-D tensor map over
+// (D, rows, C), so rows past M and features past D land as zeros) while the
+// previous tile computes; without a map (D % 4 != 0 or an unaligned base)
+// the threads load each tile themselves into the same layout.  At the end
+// the cluster's CTAs leave their partial C.y, rowsum and dwx in shared
+// memory; rank r sums rows [32 r / cluster, 32 (r + 1) / cluster) over the
+// ranks in rank order through distributed shared memory and writes dx and
+// dwx.  No float atomics and no scratch in device memory: repeated calls
+// give the same bits.
+
 
 // acc[m][s] += C.y for rows 16 m + [0, 16) and the 8 columns of tile
 // w + 8 s, over the 32 rows of the y tile; C's TF32 parts are (32,
@@ -714,13 +759,6 @@ bool can_vec4(const float* x, const float* y, int D) {
          reinterpret_cast<uintptr_t>(y) % 16 == 0;
 }
 
-template <typename Kernel>
-int opt_in_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-}
-
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -802,39 +840,63 @@ int launch_grad(const float* x, const float* y, const float* wx, const float* wy
                   &dx, &dwx};
   return static_cast<int>(cudaLaunchKernelExC(&cfg, kernel, args));
 }
+
+int launch_sum(const float* x, const float* y, const float* wx, const float* wy, int C, int N,
+               int M, int D, int split, int sym, Sigmas sig, unsigned* tickets, float* partials,
+               float* out, cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(kernel_sum_3xtf32);
+  const size_t smem = sum_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tm_x = {};
+  CUtensorMap tm_y = {};
+  int tma = 0;
+  if (can_vec4(x, y, D)) {
+    if (!encode(&tm_x, x, C, N, D)) return static_cast<int>(cudaErrorInvalidValue);
+    if (sym) {
+      tm_y = tm_x;
+    } else if (!encode(&tm_y, y, C, M, D)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    tma = 1;
+  }
+  void* args[] = {&tm_x, &tm_y, const_cast<float**>(&x), const_cast<float**>(&y),
+                  const_cast<float**>(&wx), const_cast<float**>(&wy), &N, &M, &D, &tma, &sym,
+                  &sig, &tickets, &partials, &out};
+  return static_cast<int>(
+      cudaLaunchKernel(kernel, dim3(split, C), dim3(kThreads), args, smem, stream));
+}
 }  // namespace
 
 extern "C" {
 
-// Scratch floats K2 needs for `partials`: C * ceil(N / 32).
-int zs3_mmd_partials(int C, int N) { return C * ((N + kTile - 1) / kTile); }
-
-// K2.  x (C,N,D), y (C,M,D), wx (C,N), wy (C,M), partials and out (C,)
-// are device pointers; sigmas (S <= 8) is a host array.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// K2.  x (C,N,D), y (C,M,D), wx (C,N), wy (C,M), tickets (C,), partials
+// (C * split,) and out (C,) are device pointers; sigmas (S <= 8) is a host
+// array.  `split` CTAs share each class's tile pairs (ops/mmd_kernels.py::
+// sum_plan); with `symmetric` (x == y, wx == wy, N == M) only the pairs
+// a <= b are taken.  tickets must be 0 before the first call, and every
+// call leaves them 0.  x and y are read through TMA tensor maps when
+// D % 4 == 0 and both are 16-byte aligned, else by plain loads.  Launches
+// on `stream` and returns the launch's CUDA error (0 on success).
 int zs3_mmd_kernel_sum(const float* x, const float* y, const float* wx, const float* wy,
-                       int C, int N, int M, int D, const float* sigmas, int S,
-                       float* partials, float* out, void* stream) {
-  if (C < 1 || N < 1 || M < 1 || D < 1 || D > kMaxD) {
+                       int C, int N, int M, int D, const float* sigmas, int S, int split,
+                       int symmetric, unsigned* tickets, float* partials, float* out,
+                       void* stream) {
+  if (C < 1 || N < 1 || M < 1 || D < 1 || D > kMaxD || split < 1 ||
+      (symmetric && (N != M || x != y || wx != wy))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long ty = (M + kTile - 1) / kTile;
+  const long long pairs = symmetric ? ty * (ty + 1) / 2 : ((N + kTile - 1) / kTile) * ty;
+  if (split > pairs) return static_cast<int>(cudaErrorInvalidValue);
   Sigmas sig;
-  int err = make_sigmas(sigmas, S, &sig);
+  const int err = make_sigmas(sigmas, S, &sig);
   if (err != 0) return err;
-  const size_t smem = smem_bytes(D, kSumExtra);
-  err = opt_in_smem(kernel_sum_blocks, smem);
-  if (err != 0) return err;
-  auto st = static_cast<cudaStream_t>(stream);
-  const int blocks = (N + kTile - 1) / kTile;
-  kernel_sum_blocks<<<dim3(blocks, C), kThreads, smem, st>>>(
-      x, y, wx, wy, N, M, D, can_vec4(x, y, D), sig, partials);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  kernel_sum_classes<<<(C + 127) / 128, 128, 0, st>>>(partials, blocks, C, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum(x, y, wx, wy, C, N, M, D, split, symmetric ? 1 : 0, sig, tickets, partials,
+                    out, static_cast<cudaStream_t>(stream));
 }
 
-// K3: dx (C,N,D) and dwx (C,N) with respect to x; dwx may be null.  Same
 // K3: dx (C,N,D) and dwx (C,N) with respect to x; dwx may be null.  Same
 // conventions as zs3_mmd_kernel_sum; `cluster` (1, 2, 4 or 8) CTAs share
 // each tile of 32 x rows and split its y tiles (ops/mmd_kernels.py::
@@ -874,6 +936,26 @@ int zs3_mmd_grad_ctas_per_sm(int D) {
   }
   return err != cudaSuccess ? -static_cast<int>(err) : per_sm;
 }
+// Dynamic shared memory (bytes) of one K2 CTA at D features (-1: D not taken).
+int zs3_mmd_sum_smem(int D) {
+  return D < 1 || D > kMaxD ? -1 : static_cast<int>(sum_smem_bytes(D));
+}
+
+// K2 CTAs an SM of the current device holds at D features, by the
+// occupancy API (negative: a CUDA error).
+int zs3_mmd_sum_ctas_per_sm(int D) {
+  if (D < 1 || D > kMaxD) return -static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = reinterpret_cast<const void*>(kernel_sum_3xtf32);
+  const size_t smem = sum_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  return err != cudaSuccess ? -static_cast<int>(err) : per_sm;
+}
+
 const char* zs3_mmd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -4,17 +4,21 @@ The generator's MMD needs three weighted Gaussian kernel sums per class
 (fake-fake, real-real, fake-real).  The plain version materialises the
 (N, M) distance and kernel matrices; the CUDA kernels in
 csrc/mmd_kernel_sum.cu never do: K2 computes the sums, K3 the gradient
-with respect to one side.  K3 runs its two products (x.y^T and C.y) on
-the tensor cores in 3xTF32: each f32 operand becomes a TF32 high part
-and a TF32 residual, and hi.hi + hi.lo + lo.hi is accumulated in f32,
-which keeps f32's accuracy where one TF32 product would not; `grad_plan`
-lays out its launch (thread-block clusters that split the y rows when
-the x tiles alone would not fill the card).  `KernelSum` is the
-autograd.Function over a batch of classes whose forward is K2 and whose
-backward launches K3 once for each side that needs a gradient (with the
-arguments swapped for y), as zs3_tpu's custom VJP does, and once in all
-when both sides are the same tensor.  On a CPU tensor it runs the plain
-versions; on a CUDA tensor it launches the kernels or raises.
+with respect to one side.  Both run their products (K2's x.y^T, K3's
+x.y^T and C.y) on the tensor cores in 3xTF32: each f32 operand becomes a
+TF32 high part and a TF32 residual, and hi.hi + hi.lo + lo.hi is
+accumulated in f32, which keeps f32's accuracy where one TF32 product
+would not.  `sum_plan` lays out K2's launch (how many CTAs share a
+class's 32 x 32 tile pairs, so that the card is full; the last CTA of a
+class sums the class's partials in a fixed order), `grad_plan` K3's
+(thread-block clusters that split the y rows when the x tiles alone
+would not fill the card).  `KernelSum` is the autograd.Function over a
+batch of classes whose forward is K2 (over the pairs a <= b only when
+both sides are one tensor) and whose backward launches K3 once for each
+side that needs a gradient (with the arguments swapped for y), as
+zs3_tpu's custom VJP does, and once in all when both sides are the same
+tensor.  On a CPU tensor it runs the plain versions; on a CUDA tensor it
+launches the kernels or raises.
 
 `kernel_mmd_loss` and `batched_kernel_mmd_loss` assemble the sqrt-MMD
 with the oracle's own `assemble_sqrt_mmd` and `mean_over_present_classes`
@@ -41,28 +45,32 @@ from zs3_tpu_torch.ops.mmd import (
 MAX_FEATURES = 512
 MAX_SIGMAS = 8
 
-# K3's launch (csrc/mmd_kernel_sum.cu, kernel_sum_grad_3xtf32): CTAs of
-# GRAD_THREADS threads over tiles of GRAD_ROWS x rows, walking y tiles of
-# GRAD_ROWS rows through a ring of GRAD_STAGES; features padded to panels
-# of GRAD_PANEL.
+# The kernels' tiles (csrc/mmd_kernel_sum.cu): CTAs of GRAD_THREADS threads
+# over tiles of GRAD_ROWS rows, y tiles through a ring of GRAD_STAGES,
+# features padded to panels of GRAD_PANEL.  K3 (kernel_sum_grad_3xtf32)
+# owns tiles of x rows; K2 (kernel_sum_3xtf32) walks (x tile, y tile) pairs.
 GRAD_ROWS = 32
 GRAD_THREADS = 256
 GRAD_STAGES = 2
 GRAD_PANEL = 32
 GRAD_RED_PITCH = 40
 GRAD_SMALL_FLOATS = 6 * GRAD_ROWS
+SUM_SMALL_FLOATS = (2 + 2 * GRAD_STAGES) * GRAD_ROWS + GRAD_THREADS // 32
+SUM_CTAS_PER_SM = 2  # K2's __launch_bounds__ minimum
 MAX_CLUSTER = 8
 SM_COUNT = 132  # H100 SXM
 MAX_SHARED_BYTES = 232_448  # H100: dynamic shared memory one CTA may take
+SM_SHARED_BYTES = 233_472  # H100: shared memory of an SM, 1 KB of it reserved per CTA
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_KERNEL_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P]
+_SUM_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I]  # x, y, wx, wy, C, N, M, D, sigmas, S
 _LIB = CudaLibrary(
     "mmd_kernel_sum",
     {
-        "zs3_mmd_partials": ([_I, _I], ctypes.c_int),
-        "zs3_mmd_kernel_sum": (_KERNEL_ARGS, ctypes.c_int),
-        "zs3_mmd_kernel_sum_grad": (_KERNEL_ARGS[:-1] + [_I, _P], ctypes.c_int),
+        "zs3_mmd_kernel_sum": (_SUM_ARGS + [_I, _I, _P, _P, _P, _P], ctypes.c_int),
+        "zs3_mmd_kernel_sum_grad": (_SUM_ARGS + [_P, _P, _I, _P], ctypes.c_int),
+        "zs3_mmd_sum_smem": ([_I], ctypes.c_int),
+        "zs3_mmd_sum_ctas_per_sm": ([_I], ctypes.c_int),
         "zs3_mmd_grad_smem": ([_I], ctypes.c_int),
         "zs3_mmd_grad_ctas_per_sm": ([_I], ctypes.c_int),
         "zs3_mmd_error_string": ([_I], ctypes.c_char_p),
@@ -112,29 +120,94 @@ def _raise_on(lib, rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
+def sum_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one K2 CTA at d features (the kernel's
+    sum_smem_bytes): K3's tiles and `red`, the x row norms and weights,
+    a pair of |y|^2 and wy rows for each stage of the ring, the warps'
+    sums and the mbarriers."""
+    dp = -(-d // GRAD_PANEL) * GRAD_PANEL
+    floats = (GRAD_ROWS * dp * (1 + GRAD_STAGES) + 2 * GRAD_ROWS * GRAD_RED_PITCH
+              + SUM_SMALL_FLOATS)
+    return 1024 + 4 * floats + 8 * (GRAD_STAGES + 1)
+
+
+def sum_plan(c: int, n: int, m: int, d: int, symmetric: bool = False) -> dict:
+    """How K2 lays out a call over x (c,n,d) and y (c,m,d): a class's work
+    is its (x tile, y tile) pairs of 32 x 32 rows in row-major order (the
+    pairs a <= b when `symmetric`: x is y, counted twice off the
+    diagonal), cut into `split` contiguous runs, one CTA each, on a grid
+    (split, c).  `split` fills the CTAs the card holds at once (SM_COUNT
+    times what shared memory and the launch bounds let an SM hold), then
+    shrinks while the longest run stays as long: 8 at (21, 128, 128,
+    256), 168 CTAs of 2 pairs.  Raises on sizes the kernel refuses."""
+    if not 1 <= d <= MAX_FEATURES or min(c, n, m) < 1 or (symmetric and n != m):
+        raise ValueError(f"kernel_sum: bad sizes C={c} N={n} M={m} D={d} symmetric={symmetric}")
+    smem = sum_smem_bytes(d)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"kernel_sum: {smem} bytes of shared memory at D={d}")
+    x_tiles, y_tiles = -(-n // GRAD_ROWS), -(-m // GRAD_ROWS)
+    pairs = y_tiles * (y_tiles + 1) // 2 if symmetric else x_tiles * y_tiles
+    per_sm = min(SUM_CTAS_PER_SM, SM_SHARED_BYTES // (smem + 1024))
+    split = min(pairs, max(1, SM_COUNT * per_sm // c))
+    per_cta = -(-pairs // split)
+    split = -(-pairs // per_cta)
+    return {
+        "rows": GRAD_ROWS, "x_tiles": x_tiles, "y_tiles": y_tiles, "symmetric": symmetric,
+        "pairs": pairs, "split": split, "pairs_per_cta": per_cta, "grid": (split, c),
+        "ctas": split * c, "ctas_per_sm": per_sm, "threads": GRAD_THREADS,
+        "stages": GRAD_STAGES, "d_pad": -(-d // GRAD_PANEL) * GRAD_PANEL, "smem_bytes": smem,
+    }
+
+
+_WORKSPACE = {}
+
+
+def _workspace(device: torch.device, stream: int, c: int, split: int):
+    """K2's (tickets, partials) for a call on `stream`: kept from call to
+    call, so there is no allocation and no memset a call.  The tickets are
+    zeroed once, when made, and every launch leaves them 0; a stream has
+    its own, as two launches in flight at once must not share them."""
+    key = (device, stream)
+    tickets, partials = _WORKSPACE.get(key, (None, None))
+    if tickets is None or tickets.numel() < c:
+        tickets = torch.zeros(c, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < c * split:
+        partials = torch.empty(c * split, dtype=torch.float32, device=device)
+    _WORKSPACE[key] = tickets, partials
+    return tickets, partials
+
+
 def kernel_sum(
     x: torch.Tensor,
     y: torch.Tensor,
     wx: torch.Tensor,
     wy: torch.Tensor,
     sigmas: Sequence[float] = DEFAULT_SIGMAS,
+    symmetric: bool = False,
 ) -> torch.Tensor:
     """K2: (C,) sums_ij wx_i wy_j sum_s exp(-d2_ij / (2 sigma_s)) per class,
-    for x (C,N,D), y (C,M,D), wx (C,N), wy (C,M) f32 CUDA tensors.
+    for x (C,N,D), y (C,M,D), wx (C,N), wy (C,M) f32 CUDA tensors.  With
+    `symmetric` (y is x and wy is wx) it takes the tile pairs a <= b only
+    and counts those off the diagonal twice.
 
-    Launches on the current stream (two kernels: block partials, then a
-    per-class sum in a fixed order, so repeated calls agree bit for bit);
+    One launch on the current stream, laid out by `sum_plan`; the class
+    sums are taken in a fixed order, so repeated calls agree bit for bit.
     `kernel_sum.launches` counts the calls."""
     c, n, m, d = _check(x, y, wx, wy, "kernel_sum")
+    if symmetric and (x.data_ptr() != y.data_ptr() or wx.data_ptr() != wy.data_ptr()
+                      or n != m):
+        raise ValueError("kernel_sum: symmetric needs y to be x and wy to be wx")
+    plan = sum_plan(c, n, m, d, symmetric)
     sig = _sigma_array(sigmas)
     lib = _LIB.get()
-    partials = torch.empty(lib.zs3_mmd_partials(c, n), dtype=torch.float32, device=x.device)
     out = torch.empty(c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets, partials = _workspace(x.device, stream, c, plan["split"])
         rc = lib.zs3_mmd_kernel_sum(
             x.data_ptr(), y.data_ptr(), wx.data_ptr(), wy.data_ptr(), c, n, m, d,
-            sig, len(sigmas), partials.data_ptr(), out.data_ptr(), stream,
+            sig, len(sigmas), plan["split"], int(symmetric), tickets.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), stream,
         )
     _raise_on(lib, rc, "kernel_sum")
     kernel_sum.launches += 1
@@ -225,7 +298,8 @@ def kernel_sum_reference(
     wy: torch.Tensor,
     sigmas: Sequence[float] = DEFAULT_SIGMAS,
 ) -> torch.Tensor:
-    """Plain version of K2 (the oracle's `_kernel_sum` over classes)."""
+    """Plain version of K2 (the oracle's `_kernel_sum` over classes): every
+    pair, whether or not x is y."""
     return _kernel_sum(x.float(), y.float(), wx.float(), wy.float(), sigmas)
 
 
@@ -252,22 +326,33 @@ def kernel_sum_grad_reference(
     return dx, dwx
 
 
+def _operands(x, y, wx, wy, same: bool):
+    """The kernels' operands: f32 and contiguous.  When both sides are one
+    tensor (`same`) they stay one tensor, converted once, as K2's
+    symmetric call requires."""
+    x, wx = x.float().contiguous(), wx.float().contiguous()
+    if same:
+        return x, x, wx, wx
+    return x, y.float().contiguous(), wx, wy.float().contiguous()
+
+
 class KernelSum(torch.autograd.Function):
     """(C,) weighted kernel sums with a kernel for the backward too:
     forward K2, backward K3 once for each side that needs a gradient.
-    When x is y and wx is wy (the fake-fake sum) the kernel is symmetric
-    and both sides' gradients are the same, so K3 runs once and counts
-    twice.  CPU tensors take the plain versions."""
+    When x is y and wx is wy (the fake-fake and real-real sums) the kernel
+    is symmetric: K2 takes the tile pairs a <= b only, and both sides'
+    gradients are the same, so K3 runs once and counts twice.  CPU tensors
+    take the plain versions."""
 
     @staticmethod
     def forward(ctx, x, y, wx, wy, sigmas):
         ctx.sigmas = tuple(float(s) for s in sigmas)
         ctx.same = x is y and wx is wy
-        x, y, wx, wy = (t.float().contiguous() for t in (x, y, wx, wy))
+        x, y, wx, wy = _operands(x, y, wx, wy, ctx.same)
         ctx.save_for_backward(x, y, wx, wy)
         if x.device.type == "cpu":
             return kernel_sum_reference(x, y, wx, wy, ctx.sigmas)
-        return kernel_sum(x, y, wx, wy, ctx.sigmas)
+        return kernel_sum(x, y, wx, wy, ctx.sigmas, symmetric=ctx.same)
 
     @staticmethod
     def backward(ctx, g):
