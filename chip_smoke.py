@@ -12,7 +12,8 @@ against cuDNN's.  Then it drives the port's paths at full width
 split 2), each with the launch counts set to 0 just before and read
 just after:
 
-  * `evaluate` (eval batch 4): one K1 launch per eval batch;
+  * `evaluate` (eval batch 4): one K1 launch per eval batch, on the
+    model's bf16 logits as they are (no cast launch before it);
   * `train-gmmn` (train batch 8, 128 pixels per class, 4 steps, then one
     validation): each step launches K2 three times (fake-fake, real-real,
     fake-real) and K3 twice (fake-fake once, for both of its equal sides,
@@ -305,9 +306,10 @@ def phase_build():
     emit(phase="build", seconds=seconds)
 
 
-def k1_bound(bsz, hi, wi, c, ho, wo):
-    """(least time in ms, "bytes" or "operations") for K1 on these shapes."""
-    bytes_moved = bsz * (hi * wi * c * 4 + ho * wo * 4)
+def k1_bound(bsz, hi, wi, c, ho, wo, itemsize=4):
+    """(least time in ms, "bytes" or "operations") for K1 on these shapes,
+    with logits of `itemsize` bytes."""
+    bytes_moved = bsz * (hi * wi * c * itemsize + ho * wo * 4)
     # H blend (2 mul + 1 add per source element of each output row), W
     # blend (2 mul + 1 add per class and output pixel), compare.
     flops = bsz * ho * c * (3 * wi + 4 * wo)
@@ -315,49 +317,208 @@ def k1_bound(bsz, hi, wi, c, ho, wo):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+K1_BARS = [[4, 129, 129, 21], [16, 129, 129, 21]]  # f32, -> 513^2: the eval batches
+K1_TIMES = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from zs3_tpu_torch.ops.eval_kernels import upsample_argmax
+gen = torch.Generator(device="cuda").manual_seed(0)
+out = []
+for shape in json.loads(sys.argv[1]):
+    logits = torch.randn(shape, device="cuda", generator=gen)
+    out.append(c.time_ms(lambda: upsample_argmax(logits, (513, 513)), what=str(shape)))
+print(json.dumps(out))
+"""
+
+
+def k1_against(other_root: str):
+    """K1 (f32) of this checkout against another checkout's at K1_BARS, in
+    turns."""
+    return against(other_root, K1_TIMES, K1_BARS, "k1 against")
+
+
+def restricted_logits(gen, shape):
+    """ZS5's pseudo-label logits: f32, finfo(float32).min in the classes
+    not allowed (zs3_tpu/train/self_training.py:65); (logits, allowed)."""
+    logits = torch.randn(shape, device="cuda", generator=gen)
+    allowed = torch.rand(shape[-1], device="cuda", generator=gen) < 0.5
+    allowed[0] = True
+    allowed[-1] = False
+    return logits.masked_fill(~allowed, torch.finfo(torch.float32).min), allowed
+
+
 def phase_kernels():
     import torch.nn.functional as F
 
-    from zs3_tpu_torch.ops.eval_kernels import upsample_argmax, upsample_argmax_reference
+    from zs3_tpu_torch.ops.eval_kernels import (card_plan, upsample_argmax,
+                                                upsample_argmax_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [
-        ((4, 129, 129, 21), (513, 513), True),   # main path, eval batch 4
-        ((16, 129, 129, 21), (513, 513), True),  # main path, eval batch 16
-        ((3, 17, 17, 59), (65, 65), False),      # Pascal-Context class count
-        ((1, 9, 11, 7), (33, 45), False),        # ragged rows and columns
-        ((2, 17, 17, 21), (65, 65), False),
-        ((1, 33, 129, 128), (65, 513), False),   # 66 KB of shared memory
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (shape, size, dtype, timed)
+        ((4, 129, 129, 21), (513, 513), f32, True),   # main path, eval batch 4
+        ((16, 129, 129, 21), (513, 513), f32, True),  # main path, eval batch 16
+        ((4, 129, 129, 21), (513, 513), bf16, True),  # the model's bf16 logits
+        ((16, 129, 129, 21), (513, 513), bf16, True),
+        ((3, 17, 17, 59), (65, 65), f32, False),      # Pascal-Context class count
+        ((1, 9, 11, 7), (33, 45), f32, False),        # ragged rows and columns
+        ((1, 9, 11, 7), (33, 45), bf16, False),
+        ((2, 17, 17, 21), (65, 65), f32, False),
+        ((2, 33, 33, 21), (9, 9), f32, False),        # downsample: runs of one
+        ((1, 33, 129, 128), (65, 513), f32, False),   # 138 KB of shared memory
+        ((1, 33, 129, 128), (65, 513), bf16, False),
     ]
     timings = {}
-    for shape, size, timed in cases:
-        logits = torch.randn(shape, device="cuda", generator=gen)
+    for shape, size, dtype, timed in cases:
+        logits = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         got = upsample_argmax(logits, size)
         want = upsample_argmax_reference(logits, size)
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == torch.int32, "kernels",
               f"{shape}: got {tuple(got.shape)} {got.dtype}")
-        ties, err = compare_labels(got, want, logits, size, "kernels", str(shape))
+        what = f"{shape} {dtype}"
+        ties, err = compare_labels(got, want, logits, size, "kernels", what)
+        layout = card_plan(shape, size, True, dtype, torch.cuda.current_device())[0]
         row = dict(phase="kernels", kernel="upsample_argmax", shape=list(shape),
-                   size=list(size), near_ties=ties, max_abs_err=err)
+                   size=list(size), dtype=str(dtype).split(".")[-1], near_ties=ties,
+                   max_abs_err=err,
+                   **{k: layout[k] for k in ("band_rows", "ctas", "threads", "smem_bytes")})
         if timed:
             nchw = logits.permute(0, 3, 1, 2)
-            bound_ms, bound_by = k1_bound(*shape, *size)
+            bound_ms, bound_by = k1_bound(*shape, *size, logits.element_size())
             row.update(
                 bound_ms=bound_ms,
                 bound_by=bound_by,
-                kernel_ms=time_ms(lambda: upsample_argmax(logits, size)),
-                plain_ms=time_ms(lambda: upsample_argmax_reference(logits, size)),
+                kernel_ms=time_ms(lambda: upsample_argmax(logits, size), what=what),
+                plain_ms=time_ms(lambda: upsample_argmax_reference(logits, size), what=what),
                 library_ms=time_ms(lambda: F.interpolate(
-                    nchw, size=size, mode="bilinear", align_corners=True).argmax(1)),
+                    nchw, size=size, mode="bilinear", align_corners=True).argmax(1), what=what),
+                host_ms=host_ms(lambda: upsample_argmax(logits, size)),
             )
-            timings[shape[0]] = row
+            timings[(shape[0], row["dtype"])] = row
         emit(**row)
-    flat = torch.zeros((1, 8, 8, 4), device="cuda")
-    got = upsample_argmax(flat, (16, 16))
-    check(bool((got == 0).all()), "kernels", "all-equal logits must give label 0")
+    # ZS5's restricted logits at a 4x and a ragged geometry: only allowed
+    # classes, the plain version's labels.
+    for shape, size in (((4, 129, 129, 21), (513, 513)), ((2, 11, 11, 21), (45, 45))):
+        logits, allowed = restricted_logits(gen, shape)
+        got = upsample_argmax(logits, size)
+        want = upsample_argmax_reference(logits, size)
+        ties, err = compare_labels(got, want, logits, size, "kernels", f"restricted {shape}")
+        check(bool(allowed[got.long()].all()), "kernels",
+              f"restricted {shape}: a class not allowed won")
+        emit(phase="kernels", kernel="upsample_argmax", case="finfo.min restricted",
+             shape=list(shape), size=list(size), near_ties=ties, max_abs_err=err, ok=True)
+    for dtype in (f32, bf16):
+        flat = torch.zeros((1, 8, 8, 4), device="cuda", dtype=dtype)
+        got = upsample_argmax(flat, (16, 16))
+        check(bool((got == 0).all()), "kernels", f"all-equal {dtype} logits must give label 0")
     emit(phase="kernels", kernel="upsample_argmax", case="all-equal", ok=True)
     return timings
+
+
+# K1's source with one part taken out or changed (k1_parts), as K3_PARTS.
+# (A variant that leaves the labels unchanged by the classes lets the
+# compiler drop the class loop: each keeps the index live.)
+K1_ONE_CLASS = ("  for (int k = 1; k < C; ++k) {\n", "  for (int k = 1; k < 1; ++k) {\n")
+K1_NO_STORES = ("  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {\n",
+                "  for (int i = threadIdx.x; i < 0; i += blockDim.x) {\n")
+K1_PARTS = {
+    "one class (launch, staging, label stores)": [K1_ONE_CLASS],
+    "one class, no label stores (launch and staging)": [K1_ONE_CLASS, K1_NO_STORES],
+    "no label stores": [K1_NO_STORES],
+    "no staging (compute on what shared memory holds)": [
+        ("      if (bytes) bulk_load(", "      if (bytes && false) bulk_load("),
+        ("      mbar_expect_tx(&bars[k], bytes);\n", "      mbar_expect_tx(&bars[k], 0);\n")],
+    "empty (launch only)": [(
+        "  const int band = static_cast<int>(blockIdx.x % g.nbands);\n",
+        "  if (g.C > 0) return;\n  const int band = static_cast<int>(blockIdx.x % g.nbands);\n")],
+    "fifth column in every warp": [(
+        "    if (__any_sync(__activemask(), run.y > kCols)) {\n", "    if (true) {\n")],
+    "W blend of one product (fl(wa ha))": [(
+        "      const float v = blend(wca[j], ha[r], wcb[j], hb[r]);\n",
+        "      const float v = __fmul_rn(wca[j], ha[r]);\n")],
+    "max and class packed in 64 bits, one predicated mad.wide.u32": [
+        ("__device__ __forceinline__ void take(float v, int k, float& best, int& arg) {\n"
+         "  if (v > best) {  // strict: the first maximum wins\n    best = v;\n    arg = k;\n  }\n",
+         "__device__ __forceinline__ void take(float v, unsigned long long kk,\n"
+         "                                     unsigned long long& best) {\n"
+         '  asm("{\\n.reg .pred p;\\n.reg .b32 lo, hi;\\nmov.b64 {lo, hi}, %0;\\n"\n'
+         '      "setp.gt.f32 p, %1, lo;\\n@p mad.wide.u32 %0, %2, 1, %3;\\n}\\n"\n'
+         '      : "+l"(best) : "f"(v), "r"(__float_as_uint(v)), "l"(kk));\n'),
+        ("    float (&best)[kRows][kCols + 1], int (&arg)[kRows][kCols + 1]) {\n",
+         "    unsigned long long (&best)[kRows][kCols + 1]) {\n"),
+        ("  const float va1 = widen(a1 + k), vb1 = widen(b1 + k);\n",
+         "  const float va1 = widen(a1 + k), vb1 = widen(b1 + k);\n"
+         "  const unsigned long long kk = static_cast<unsigned long long>(k) << 32;\n"),
+        ("        best[r][j] = v;\n        arg[r][j] = 0;\n",
+         "        best[r][j] = __float_as_uint(v);\n"),
+        ("        take(v, k, best[r][j], arg[r][j]);\n", "        take(v, kk, best[r][j]);\n"),
+        ("  float best[kRows][kCols + 1];\n"
+         "  tile_class<true, kFifth>(a0, b0, a1, b1, 0, wra, wrb, wca, wcb, best, arg);\n",
+         "  unsigned long long best[kRows][kCols + 1] = {};\n"
+         "  tile_class<true, kFifth>(a0, b0, a1, b1, 0, wra, wrb, wca, wcb, best);\n"),
+        ("    tile_class<false, kFifth>(a0, b0, a1, b1, k, wra, wrb, wca, wcb, best, arg);\n  }\n",
+         "    tile_class<false, kFifth>(a0, b0, a1, b1, k, wra, wrb, wca, wcb, best);\n  }\n"
+         "#pragma unroll\n  for (int r = 0; r < kRows; ++r) {\n#pragma unroll\n"
+         "    for (int j = 0; j <= kCols; ++j) arg[r][j] = static_cast<int>(best[r][j] >> 32);\n"
+         "  }\n")],
+}
+
+
+def k1_parts():
+    """What holds K1 back, on one card: K1 against copies of its source
+    with one part taken out or changed (K1_PARTS), each built like the
+    kernel and called through its C entry point on the plan's tables,
+    timed in turns (forward, then reverse) at (4,129,129,21) and
+    (16,129,129,21) -> 513^2, f32 and bf16; beside them a device copy of
+    the f32 logits and a fill of the labels.  Prints one line."""
+    import ctypes
+
+    from zs3_tpu_torch.ops import eval_kernels as ek
+
+    phase = "k1 parts"
+    out_dir = os.path.join(SCRATCH, "k1_parts")
+    libs = {}
+    for name, so in build_variants(phase, [("kernel", [])] + list(K1_PARTS.items()), out_dir,
+                                   "upsample_argmax"):
+        lib = ctypes.CDLL(so)
+        fn = lib.zs3_upsample_argmax
+        fn.argtypes, fn.restype = ek._LIB._functions["zs3_upsample_argmax"]
+        libs[name] = lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for bsz, dtype in ((4, torch.float32), (4, torch.bfloat16), (16, torch.float32)):
+        shape, size = (bsz, 129, 129, 21), (513, 513)
+        logits = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        layout, ints, floats = ek.card_plan(shape, size, True, dtype, torch.cuda.current_device())
+        ngroups, nruns = len(layout["rows"].starts), len(layout["cols"].starts)
+        out = torch.empty((bsz, *size), dtype=torch.int32, device="cuda")
+        times = {}
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                lib = libs[name]
+
+                def call():
+                    rc = lib.zs3_upsample_argmax(
+                        logits.data_ptr(), int(dtype == torch.bfloat16), bsz, *shape[1:], *size,
+                        ints.data_ptr(), ngroups, layout["groups_per_band"], floats.data_ptr(),
+                        ints.data_ptr() + 16 * ngroups, nruns, floats.data_ptr() + 8 * size[0],
+                        layout["threads"], layout["off_src"], layout["off_lab"],
+                        layout["smem_bytes"], out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, phase, f"{name}: launch failed ({rc})")
+
+                t = time_ms(call, what=name)
+                times[name] = min(t, times.get(name, t))
+        if dtype == torch.float32:
+            copy = torch.empty_like(logits)
+            times["copy of the logits"] = time_ms(lambda: copy.copy_(logits), what="copy")
+            times["fill of the labels"] = time_ms(lambda: out.fill_(1), what="fill")
+        result[f"{bsz} {str(dtype).split('.')[-1]}"] = times
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit(phase=phase, shape="(B,129,129,21)->513^2", best_of_2_ms=result)
+    return result
 
 
 def k4_bound(bsz, hi, wi, c, k, dtype):
@@ -729,12 +890,12 @@ def build_source(phase: str, name: str, text: str, out_dir: str) -> str:
     return so
 
 
-def build_variants(phase: str, parts, out_dir: str):
-    """[(name, library)]: csrc/mmd_kernel_sum.cu with each part's
-    substitutions made, one nvcc per variant, all at once."""
+def build_variants(phase: str, parts, out_dir: str, source: str = "mmd_kernel_sum"):
+    """[(name, library)]: csrc/<source>.cu with each part's substitutions
+    made, one nvcc per variant, all at once."""
     from zs3_tpu_torch.ops import cuda_build
 
-    src = (cuda_build.CSRC / "mmd_kernel_sum.cu").read_text()
+    src = (cuda_build.CSRC / f"{source}.cu").read_text()
 
     def build(item):
         i, (name, subs) = item
@@ -1294,22 +1455,49 @@ def phase_slice():
          device_ms_per_image=device_ms_per_image,
          idle_share_untraced=1.0 - device_ms_per_image * images_per_sec / 1e3,
          **prof)
+    # The model's bf16 logits reach K1 as they are: no cast kernel between
+    # the classifier and K1.
+    before = kernels_before(lambda: step(model, batches[0]), "upsample_argmax")
+    check(bool(before) and "copy" not in before[-1].lower(), "profile",
+          f"a copy kernel runs right before K1: {before}")
+    emit(phase="profile", check="no cast launch before K1", kernels_before_k1=before, ok=True)
 
     # One batch with TF32 off: K1 against the plain version on the same logits.
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.inference_mode():
             first = batches[0]["image"]
-            logits = model.classify(model.forward_features(first)).float().contiguous()
+            logits = model.classify(model.forward_features(first)).contiguous()
             size = tuple(first.shape[1:3])
-            got = eval_kernels.upsample_argmax(logits, size)
-            want = eval_kernels.upsample_argmax_reference(logits, size)
-            ties, _ = compare_labels(got, want, logits, size, "slice", "tf32-off batch")
+            ties = {}
+            for name, x in (("model", logits), ("float32", logits.float())):
+                got = eval_kernels.upsample_argmax(x, size)
+                want = eval_kernels.upsample_argmax_reference(x, size)
+                ties[name], _ = compare_labels(got, want, x, size, "slice",
+                                               f"tf32-off batch, {name} logits")
     finally:
         torch.backends.cudnn.allow_tf32 = True
-    emit(phase="slice", check="tf32-off batch, K1 vs plain", near_ties=ties,
-         pixels=got.numel(), ok=True)
+    emit(phase="slice", check="tf32-off batch, K1 vs plain", logits_dtype=str(logits.dtype),
+         near_ties=ties, pixels=got.numel(), ok=True)
     return launches
+
+
+def kernels_before(fn, name: str, n: int = 3):
+    """The names of the `n` device kernels that ran right before the first
+    whose name holds `name`, in one traced fn() (after one untraced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    first = next((i for i, k in enumerate(names) if name in k), None)
+    return [] if first is None else [k[:120] for k in names[max(0, first - n):first]]
 
 
 def voc_like_images(seed: int, count: int, sizes=((375, 500), (500, 375))):
@@ -2455,7 +2643,8 @@ def main() -> int:
     phase_serve_reference()
     phase_seen_reference()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    b4, b16 = timings[4], timings[16]
+    b4 = timings[(4, "float32")]
+    k1_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "host_ms")
     k4 = tail_timings[(SERVE_BATCH, 129, "bfloat16")]
     k4_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
     main_err, main_t = mmd_errors["main path"], mmd_timings[128]
@@ -2494,7 +2683,11 @@ def main() -> int:
         "bound_by": b4["bound_by"],
         "library_ms": b4["library_ms"],
         "shape": b4["shape"],
-        "b16": {k: b16[k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
+        "host_ms": b4["host_ms"],
+        **{f: b4[f] for f in ("band_rows", "ctas", "threads", "smem_bytes")},
+        "b16": {f: timings[(16, "float32")][f] for f in k1_fields},
+        "bf16": {f: timings[(4, "bfloat16")][f] for f in k1_fields + ("max_abs_err",)},
+        "b16_bf16": {f: timings[(16, "bfloat16")][f] for f in k1_fields},
     },
         mmd_row("mmd_kernel_sum", "K2", 54, main_err["k2_max_abs_err"]),
         mmd_row("mmd_kernel_sum_grad", "K3", 79, main_err["k3_dx_max_abs_err"]),

@@ -433,7 +433,7 @@ def test_tta_eval_step_confusions_match_zs3_tpu(r50_tta, jax_confusions):
 def test_evaluate_refuses_int8_eval():
     cfg = Config()
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="int8 PTQ evaluation"):
         evaluate(cfg, device="cpu")
 
 

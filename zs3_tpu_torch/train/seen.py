@@ -11,9 +11,10 @@ seeded from (train.seed, step), so a resumed run repeats an
 uninterrupted one.
 
 `make_eval_step` mirrors zs3_tpu's too: features -> classify at the
-feature grid -> f32 logits -> predict_labels (kernel K1 on the GPU, the
-plain version on the CPU) -> confusion matrix, so the full-resolution
-logits never reach device memory.  With `train.eval_scales != (1.0,)`
+feature grid -> predict_labels (kernel K1 on the GPU, which reads the
+model's bf16 or f32 logits as they are; the plain version, in f32, on
+the CPU) -> confusion matrix, so the full-resolution logits never reach
+device memory.  With `train.eval_scales != (1.0,)`
 or `train.eval_flip`, `select_eval_step` gives the ms+flip TTA step
 (metrics/tta.py) instead.
 
@@ -75,10 +76,10 @@ def make_train_step(
         raise ValueError(f"loss_at must be 'full' or 'feature', got {loss_at!r}")
     if qat:
         raise NotImplementedError("train.qat (quantization-aware training) is not ported "
-                                  "yet: ROADMAP Queue 1 item 10")
+                                  "yet: see ROADMAP Queue 1, Quantization")
     if device_preprocess:
-        raise NotImplementedError("data.device_preprocess is not ported yet: ROADMAP "
-                                  "Queue 1 item 5")
+        raise NotImplementedError("data.device_preprocess (device-side preprocessing) is not "
+                                  "ported yet: see ROADMAP Queue 1, Data")
 
     def micro_loss(model: DeepLab, images: torch.Tensor, labels: torch.Tensor):
         if loss_at == "feature":
@@ -117,7 +118,7 @@ def make_eval_step(
         images = batch["image"]
         feats = model.forward_features(images)
         logits = model.classify(feats)
-        pred = predict_labels(logits.float(), tuple(images.shape[1:3]))
+        pred = predict_labels(logits, tuple(images.shape[1:3]))
         return confusion_matrix(batch["label"], pred, num_classes, ignore_index)
 
     return eval_step
@@ -132,7 +133,7 @@ def select_eval_step(
     if train_cfg.int8_eval:
         raise NotImplementedError(
             "train.int8_eval (int8 PTQ evaluation) is not ported yet: "
-            "ROADMAP Queue 1 item 10"
+            "see ROADMAP Queue 1, Quantization"
         )
     if tuple(train_cfg.eval_scales) != (1.0,) or train_cfg.eval_flip:
         return make_tta_eval_step(
