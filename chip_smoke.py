@@ -18,7 +18,9 @@ just after:
     validation): each step launches K2 three times (fake-fake, real-real,
     fake-real) and K3 twice (fake-fake once, for both of its equal sides,
     and fake-real for x: only the generated features need a gradient),
-    and the validation one K1 per eval batch;
+    and the validation one K1 per eval batch; the same with
+    `--graph-context` (the graph-context generator), its step's device
+    time split with the graph branch as a stage of its own;
   * `serve --fused-tail --serve-batch 8`: an in-process InferenceServer
     answering 64 concurrent POSTs of VOC-sized PNGs, 2 sliding-window
     requests and 1 colorized one; one K4 launch per batched forward and
@@ -32,7 +34,11 @@ just after:
     --resume <seen checkpoint> --no-val` (1 step), `evaluate-gmmn
     --gmmn-resume <its checkpoint>` (whose next draws must be the
     uninterrupted run's second step's, not its first's), `evaluate
-    --resume <seen checkpoint>`;
+    --resume <seen checkpoint>`, then `train-zs5 --resume <seen
+    checkpoint>` (4 steps, one validation): K1 once per tagged train
+    image on f32 logits restricted with finfo(float32).min, and per eval
+    batch, K2 3 and K3 2 a step; its PNGs hold only seen classes, the
+    image's tags or ignore;
   * K5 over the 29 identity blocks of that trained trunk, reloaded from
     its checkpoint, in eval mode at eval batch 4: one launch per block
     (and, before the paths, K5 on small and ragged shapes and its
@@ -40,7 +46,8 @@ just after:
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
-size (ResNet-50, 65x65, f32).  Checkpoints go to build/chip_smoke_run/,
+size (ResNet-50, 65x65, f32): among them the ZS3, graph-context and ZS5
+steps, and ZS5's pseudo-labels.  Checkpoints go to build/chip_smoke_run/,
 removed at the end.  Each phase prints one JSON line; a failed
 phase exits nonzero.  The line before the last is the kernel table, the
 last line is {"ok": true, "device": {...}}.  Needs one CUDA card;
@@ -101,6 +108,7 @@ ZS3_ARGS = [
     "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(ZS3_STEPS),
     "--seed", "0", "--device", "cuda", *CKPT_ARGS,
 ]
+GRAPH_ARGS = [*ZS3_ARGS, "--graph-context"]
 SEEN_STEPS = 4
 SEEN_WINDOW = 20  # steps per timed window
 SEEN_ARGS = [
@@ -2159,7 +2167,6 @@ def phase_zs3():
     from zs3_tpu_torch import cli
     from zs3_tpu_torch.metrics.evaluator import Evaluator
     from zs3_tpu_torch.train.seen import device_batch
-    from zs3_tpu_torch.utils.profiling import profile_device
 
     phase = "zs3 slice"
 
@@ -2200,6 +2207,17 @@ def phase_zs3():
     emit(phase=phase, check="validation again: counts add up, metrics agree",
          pixels=valid, ok=True)
 
+    time_zs3_step(trainer, phase, "zs3 profile")
+    return launches
+
+
+def time_zs3_step(trainer, phase: str, profile_phase: str):
+    """On a trainer `cli.run` returned (ZS3, ZS5 or graph-context): its
+    step's rate over device batches, and its device time, whole and by
+    stage (the graph branch a stage of its own)."""
+    from zs3_tpu_torch.train.seen import device_batch
+    from zs3_tpu_torch.utils.profiling import profile_device
+
     # Steps/s over device batches: 5 windows of 100 steps (host clock,
     # each ending in a synchronize), the host's own ms per step, and the
     # host syncs in one step (none, or host_ms would include device time).
@@ -2234,54 +2252,135 @@ def phase_zs3():
     # Where the step's device time goes: the whole step under the
     # profiler, then each stage alone on the first batch.
     prof = profile_device(one_pass, steps=2)
-    check(prof["device_busy_ms"] > 0, "zs3 profile", "the profiler saw no device time")
+    check(prof["device_busy_ms"] > 0, profile_phase, "the profiler saw no device time")
     step_ms = prof["device_busy_ms"] / (2 * len(batches))
     mmd_ms = mmd_kernel_ms(prof)
     step = trainer.step
-    feats, labels = step.features(batches[0])
+    first = batches[0]
+    feats, labels = step.features(first)
     u, noise1, noise2 = step.draw(labels.shape[0], 0)
-    real, real_mask = step.sample(feats, labels, u)
+    real, real_mask, pix_idx = step.sample(feats, labels, u, return_indices=True)
+    grid = labels.shape[0] // first["label"].shape[0]
+    context = step.context(first["label"], pix_idx, real_mask, grid) if step.graph_context else None
     stages = {
-        "trunk": lambda: step.features(batches[0]),
+        "trunk": lambda: step.features(first),
         "draws": lambda: step.draw(labels.shape[0], 0),
-        "sampling": lambda: step.sample(feats, labels, u),
-        "generator_update": lambda: step.generator_update(real, real_mask, noise1),
-        "classifier_update": lambda: step.classifier_update(real, real_mask, noise2),
+        "sampling": lambda: step.sample(feats, labels, u, return_indices=step.graph_context),
     }
-    split = {}
+    if step.graph_context:  # adjacency, neighbour lists and their gathers
+        stages["graph"] = lambda: step.context(first["label"], pix_idx, real_mask, grid)
+    stages["generator_update"] = lambda: step.generator_update(real, real_mask, noise1, context)
+    stages["classifier_update"] = lambda: step.classifier_update(real, real_mask, noise2, context)
+    split, graph_kernels = {}, None
     for name, fn in stages.items():
         p = profile_device(fn, steps=4)
         split[name] = p["device_busy_ms"] / 4
         if name == "generator_update":
             split["of_which_k2_k3"] = mmd_kernel_ms(p) / 4
+        if name == "graph":
+            graph_kernels = p["kernels"][:8]
     prof["kernels"], prof["ops"] = prof["kernels"][:15], prof["ops"][:15]
-    emit(phase="zs3 profile", steps_per_pass=len(batches), device_ms_per_step=step_ms,
+    if graph_kernels:
+        prof["graph_kernels"] = graph_kernels
+    emit(phase=profile_phase, steps_per_pass=len(batches), device_ms_per_step=step_ms,
          k2_k3_device_ms_per_step=mmd_ms / (2 * len(batches)),
          host_ms_per_step=host_ms_per_step, stage_device_ms=split,
          idle_share_untraced=1.0 - step_ms * steps_per_sec / 1e3, **prof)
+
+
+def step_mmd_inputs(trainer):
+    """(fake, real, fake_mask, real_mask) of the trainer's generator MMD on
+    its first train batch: the inputs its step hands K2 and K3."""
+    from zs3_tpu_torch.train.gmmn import mmd_training_masks
+    from zs3_tpu_torch.train.seen import device_batch
+
+    step = trainer.step
+    batch = device_batch(next(iter(trainer.train_loader)), torch.device("cuda"))
+    feats, labels = step.features(batch)
+    u, noise1, _ = step.draw(labels.shape[0], 0)
+    real, real_mask, pix_idx = step.sample(feats, labels, u, return_indices=True)
+    context = None
+    if step.graph_context:
+        grid = labels.shape[0] // batch["label"].shape[0]
+        context = step.context(batch["label"], pix_idx, real_mask, grid)
+    with torch.no_grad():
+        fake = step.generate(noise1, context).contiguous()
+    fake_mask, mmd_real_mask = mmd_training_masks(real_mask, step.seen_mask, step.self_training)
+    return fake, real.contiguous(), fake_mask.contiguous(), mmd_real_mask.contiguous()
+
+
+def phase_graph():
+    """`cli train-gmmn --graph-context` at full width: the launches of
+    phase_zs3, a GraphContextGMMN trained, K2/K3 against their plain
+    versions on the step's own inputs, then the step timed and split by
+    stage."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.models.gmmn import GraphContextGMMN
+
+    phase = "graph slice"
+    reset_counts()
+    t0 = time.time()
+    result, trainer = cli.run(GRAPH_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    eval_batches = len(trainer.val_loader)
+    want = {"K1": eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS, "K4": 0, "K5": 0}
+    check(launches == want, phase,
+          f"launches {launches} for {ZS3_STEPS} steps and {eval_batches} eval batches")
+    check(isinstance(trainer.generator, GraphContextGMMN) and trainer.step.graph_context, phase,
+          f"the generator is a {type(trainer.generator).__name__}")
+    check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
+          f"non-finite results {result}")
+    check(result["mmd"] > 0, phase, f"mmd {result['mmd']} is not positive")
+    check({"seen_miou", "unseen_miou", "harmonic_miou"} <= result.keys(), phase,
+          "seen/unseen/harmonic mIoU missing")
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(GRAPH_ARGS),
+         result=result, launches=launches, steps=ZS3_STEPS,
+         eval_batches=eval_batches, wall_seconds_with_setup=wall)
+    errors = check_k2_k3(*step_mmd_inputs(trainer), "graph step")
+    emit(phase=phase, check="K2/K3 on the graph step's inputs against their plain versions",
+         **errors, ok=True)
+    time_zs3_step(trainer, phase, "graph profile")
     return launches
 
 
-def phase_zs3_reference():
-    """One ZS3 step on the card against the same step on the CPU: same
-    weights, batch and draws; ResNet-50 at 65x65, f32, TF32 off.  mmd and
-    cls_ce to rtol 1e-4, gradients to rtol 1e-3 with an atol of 1e-4 of
-    the tensor's largest entry, updated params to 1e-6 where
-    |g| > 1e-3 max|g| (Adam's first step is +-lr, whatever |g|)."""
+REFERENCE_ARGS = ["train-gmmn", "--dataset", "synthetic", "--backbone", "resnet50",
+                  "--crop-size", "65", "--base-size", "65", "--batch-size", "8",
+                  "--compute-dtype", "float32", "--unseen-split", "2"]
+
+
+def reference_config(graph: bool = False, self_training: bool = False):
+    """The reference phases' config (ResNet-50 at 65x65, f32); ZS5's as
+    ZS5Trainer makes it (a weak-label dir keeps the unseen images)."""
+    from zs3_tpu_torch import cli
+
+    argv = [*REFERENCE_ARGS, *(["--graph-context"] if graph else [])]
+    cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    if self_training:
+        cfg = cfg.replace(
+            data=dataclasses.replace(cfg.data, weak_label_dir=os.path.join(SCRATCH, "weak")),
+            gmmn=dataclasses.replace(cfg.gmmn, self_training=True))
+    return cfg
+
+
+def phase_zs3_reference(phase: str = "zs3 reference", graph: bool = False,
+                        self_training: bool = False):
+    """One ZS3 step (graph-conditioned, or ZS5's) on the card against the
+    same step on the CPU: same weights, batch and draws; ResNet-50 at
+    65x65, f32, TF32 off.  mmd and cls_ce to rtol 1e-4, gradients to rtol
+    1e-3 with an atol of 1e-4 of the tensor's largest entry, updated
+    params to 1e-6 where |g| > 1e-3 max|g| (Adam's first step is +-lr,
+    whatever |g|)."""
     import copy
 
-    from zs3_tpu_torch import cli
     from zs3_tpu_torch.data.loader import make_train_loader
     from zs3_tpu_torch.data.synthetic import synthetic_class_embeddings
     from zs3_tpu_torch.models.gmmn import build_gmmn, init_gmmn
     from zs3_tpu_torch.train.gmmn import ZS3Step, extract_classifier
     from zs3_tpu_torch.train.seen import build_eval_model, device_batch
 
-    phase = "zs3 reference"
-    args = ["train-gmmn", "--dataset", "synthetic", "--backbone", "resnet50",
-            "--crop-size", "65", "--base-size", "65", "--batch-size", "8",
-            "--compute-dtype", "float32", "--unseen-split", "2"]
-    cfg = cli.build_config(cli.make_parser().parse_args(args))
+    cfg = reference_config(graph, self_training)
     loader, n = make_train_loader(cfg.data)
     batch = next(iter(loader))
     unseen = torch.zeros(n)
@@ -2323,9 +2422,76 @@ def phase_zs3_reference():
         err = float((p.detach().cpu() - q.detach())[big].abs().max())
         check(err <= 1e-6, phase, f"{name}: updated params off by {err}")
         worst[name] = float((g - want_g).abs().max()) / scale
+    check(gpu_step.graph_context == graph and gpu_step.self_training == self_training, phase,
+          "the step is not the asked variant")
     emit(phase=phase, mmd=float(got["mmd"]), cpu_mmd=float(want["mmd"]),
          cls_ce=float(got["cls_ce"]), cpu_cls_ce=float(want["cls_ce"]),
-         grad_max_err_over_max_grad=worst, ok=True)
+         grad_max_err_over_max_grad=worst,
+         unseen_pixels_in_batch=int(sum((batch["label"] == c).sum()
+                                        for c in cfg.data.unseen_classes)), ok=True)
+
+
+def phase_graph_reference():
+    phase_zs3_reference("graph reference", graph=True)
+
+
+def phase_zs5_reference():
+    """The ZS5 step on the card against the CPU (phase_zs3_reference), then
+    the pseudo-labels of the same seeded network on both: the same PNGs,
+    labels that differ only at near-ties of the CPU's restricted logits."""
+    import numpy as np
+    from PIL import Image
+
+    from zs3_tpu_torch.data.loader import make_train_loader
+    from zs3_tpu_torch.data.transforms import normalize
+    from zs3_tpu_torch.train.seen import build_eval_model
+    from zs3_tpu_torch.train.self_training import _gt_view, generate_pseudo_labels
+
+    phase = "zs5 reference"
+    phase_zs3_reference(phase, self_training=True)
+    cfg = reference_config(self_training=True)
+    loader, n = make_train_loader(cfg.data)
+    base = _gt_view(loader.dataset)
+    unseen = list(cfg.data.unseen_classes)
+    size = cfg.data.crop_size
+    dirs = {dev: os.path.join(SCRATCH, f"pseudo_{dev}") for dev in ("cpu", "cuda")}
+    models = {dev: build_eval_model(cfg, dev) for dev in dirs}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        written = {dev: generate_pseudo_labels(models[dev], base, unseen, dirs[dev], size=size)
+                   for dev in dirs}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    names = sorted(os.listdir(dirs["cpu"]))
+    check(written["cpu"] == written["cuda"] == len(names) > 0
+          and names == sorted(os.listdir(dirs["cuda"])), phase, f"PNGs written: {written}")
+    by_name = {base.names[i]: i for i in range(len(base))}
+    differ = ties_total = 0
+    for name in names:
+        sample = base[by_name[name[:-4]]]
+        got = torch.from_numpy(np.asarray(Image.open(os.path.join(dirs["cuda"], name))))
+        want = torch.from_numpy(np.asarray(Image.open(os.path.join(dirs["cpu"], name))))
+        gt = np.asarray(sample["label"])
+        allowed = torch.ones(n, dtype=torch.bool)
+        allowed[unseen] = False
+        allowed[np.intersect1d(np.unique(gt), unseen).tolist()] = True
+        image = torch.from_numpy(normalize(sample)["image"])[None]  # square: no letterbox
+        with torch.inference_mode():
+            cpu_model = models["cpu"]
+            logits = cpu_model.classify(cpu_model.forward_features(image)).float()
+            logits = torch.where(allowed, logits, torch.finfo(torch.float32).min)
+        unlabelled = torch.from_numpy(np.isin(gt, unseen))
+        diff = (got != want) & unlabelled
+        ties = near_ties(logits, (size, size))[0]
+        check(bool((got == want)[~unlabelled].all()), phase, f"{name}: labelled pixels differ")
+        check(not bool((diff & ~ties).any()), phase,
+              f"{name}: {int((diff & ~ties).sum())} labels differ outside near-ties")
+        differ += int(diff.sum())
+        ties_total += int((ties & unlabelled).sum())
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    emit(phase=phase, check="pseudo-labels, card against CPU", images=len(names),
+         pixels_differing=differ, near_tie_pixels=ties_total, ok=True)
 
 
 def conv_fwd_bwd_ms(x, weight, dilation, space_to_batch):
@@ -2464,7 +2630,9 @@ def phase_chained(seen_ckpt):
     """The pipeline through the port's checkpoints: `train-gmmn --resume
     <seen checkpoint>` for one step with --no-val (it writes the -gmmn
     checkpoint), `evaluate-gmmn --gmmn-resume <it>` and `evaluate --resume
-    <seen checkpoint>`; both checkpoints reload to bit-equal tensors."""
+    <seen checkpoint>`; both checkpoints reload to bit-equal tensors.  Then
+    `train-zs5 --resume <seen checkpoint>` (phase_zs5); returns its
+    launches and K1's numbers on its pseudo-label pass."""
     from zs3_tpu_torch import cli
     from zs3_tpu_torch.utils.saver import Saver
 
@@ -2525,6 +2693,144 @@ def phase_chained(seen_ckpt):
     gc.collect()
     torch.cuda.empty_cache()
     emit(phase=phase, seen_checkpoint=os.path.relpath(seen_ckpt), stages=stages, ok=True)
+    return phase_zs5(seen_ckpt)
+
+
+def zs5_args(seen_ckpt):
+    return ["train-zs5", *FULL_WIDTH, "--batch-size", "8", "--eval-batch-size", "4",
+            "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(ZS3_STEPS),
+            *CKPT_ARGS, "--resume", seen_ckpt]
+
+
+def tagged_images(dataset, unseen):
+    """Indices of the images whose ground truth holds an unseen class."""
+    import numpy as np
+
+    return [i for i in range(len(dataset))
+            if np.isin(np.asarray(dataset[i]["label"]), unseen).any()]
+
+
+def phase_zs5(seen_ckpt):
+    """`cli train-zs5 --resume <seen checkpoint>` at full width: the
+    pseudo-label pass (K1 once per tagged image, on f32 logits restricted
+    with finfo(float32).min), 4 ZS5 steps (K2 3 and K3 2 each) and one
+    validation (K1 once per eval batch).  Then the PNGs and their labels
+    checked, K1 and K2/K3 against their plain versions on the path's own
+    inputs, the pseudo-label pass timed, and the step timed and split."""
+    import numpy as np
+    import torch.nn.functional as F
+    from PIL import Image
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data.transforms import normalize
+    from zs3_tpu_torch.ops.eval_kernels import upsample_argmax, upsample_argmax_reference
+    from zs3_tpu_torch.train.self_training import (
+        _gt_view, generate_pseudo_labels, make_pseudo_label_step,
+    )
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    phase = "zs5 slice"
+    argv = zs5_args(seen_ckpt)
+    reset_counts()
+    t0 = time.time()
+    result, trainer = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    unseen = list(trainer.unseen)
+    base = _gt_view(trainer.train_loader.dataset)
+    tagged = tagged_images(base, unseen)
+    eval_batches = len(trainer.val_loader)
+    want = {"K1": len(tagged) + eval_batches, "K2": 3 * ZS3_STEPS, "K3": 2 * ZS3_STEPS,
+            "K4": 0, "K5": 0}
+    check(launches == want, phase, f"launches {launches}, want {want} ({len(tagged)} tagged "
+                                   f"images, {eval_batches} eval batches)")
+    check(trainer.cfg.gmmn.self_training and trainer.global_step == ZS3_STEPS, phase,
+          "not a self-training run of the asked steps")
+    check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
+          f"non-finite results {result}")
+    check({"seen_miou", "unseen_miou", "harmonic_miou"} <= result.keys(), phase,
+          "seen/unseen/harmonic mIoU missing")
+    pngs = sorted(os.listdir(trainer.pseudo_dir))
+    check(pngs == sorted(base.names[i] + ".png" for i in tagged), phase,
+          f"{len(pngs)} PNGs for {len(tagged)} tagged images")
+    unseen_px = 0
+    for i in tagged:
+        sample = base[i]
+        gt = np.asarray(sample["label"])
+        pseudo = np.asarray(Image.open(os.path.join(trainer.pseudo_dir, sample["name"] + ".png")))
+        tags = np.intersect1d(np.unique(gt), unseen)
+        labelled = ~np.isin(gt, unseen)
+        check(pseudo.shape == gt.shape and np.array_equal(pseudo[labelled], gt[labelled]),
+              phase, f"{sample['name']}: labelled pixels changed")
+        seen_classes = [c for c in range(trainer.num_classes) if c not in unseen]
+        ok = np.isin(pseudo, [*seen_classes, *tags.tolist(), 255])
+        check(bool(ok.all()), phase, f"{sample['name']}: a label that is neither a seen class, "
+                                     "a tag of the image nor ignore")
+        unseen_px += int(np.isin(pseudo, tags).sum())
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(argv), result=result,
+         launches=launches, tagged_images=len(tagged), pseudo_label_pngs=len(pngs),
+         pixels_pseudo_labelled_unseen=unseen_px, steps=ZS3_STEPS, eval_batches=eval_batches,
+         wall_seconds_with_setup=wall)
+
+    # K1 on a tagged image's restricted f32 logits, as the pass made them.
+    model = trainer.model
+    sample = base[tagged[0]]
+    image = torch.from_numpy(normalize(sample)["image"])  # square: no letterbox
+    allowed = torch.ones(trainer.num_classes, dtype=torch.bool)
+    allowed[unseen] = False
+    allowed[np.intersect1d(np.unique(np.asarray(sample["label"])), unseen).tolist()] = True
+    allowed = allowed.cuda()
+    with torch.inference_mode():
+        logits = model.classify(model.forward_features(image[None].cuda())).float()
+        logits = torch.where(allowed, logits, torch.finfo(torch.float32).min).contiguous()
+    size = tuple(image.shape[:2])
+    got = upsample_argmax(logits, size)
+    ref = upsample_argmax_reference(logits, size)
+    torch.cuda.synchronize()
+    ties, err = compare_labels(got, ref, logits, size, phase, "pseudo-label K1")
+    check(bool(allowed[got.long()].all()), phase, "K1 gave a class that is not allowed")
+    nchw = logits.permute(0, 3, 1, 2)
+    bound_ms, bound_by = k1_bound(*logits.shape, *size)
+    k1 = dict(shape=list(logits.shape), size=list(size), near_ties=ties, max_abs_err=err,
+              kernel_ms=time_ms(lambda: upsample_argmax(logits, size), what="zs5 K1"),
+              plain_ms=time_ms(lambda: upsample_argmax_reference(logits, size), what="zs5 K1"),
+              library_ms=time_ms(lambda: F.interpolate(
+                  nchw, size=size, mode="bilinear", align_corners=True).argmax(1),
+                  what="zs5 K1"),
+              bound_ms=bound_ms, bound_by=bound_by)
+    emit(phase=phase, check="K1 on the pseudo-label pass's restricted logits", **k1, ok=True)
+    errors = check_k2_k3(*step_mmd_inputs(trainer), "zs5 step")
+    emit(phase=phase, check="K2/K3 on the ZS5 step's inputs against their plain versions",
+         **errors, ok=True)
+
+    # The pseudo-label pass again (with the classifier the steps trained),
+    # timed: images/s on the host clock, PNG writing included; and one
+    # image's device time under the profiler.
+    out_dir = os.path.join(SCRATCH, "pseudo_again")
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = generate_pseudo_labels(model, base, unseen, out_dir, size=trainer.cfg.data.crop_size)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    again = sorted(os.listdir(out_dir))
+    check(again == pngs, phase, "the pass again wrote other files")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pseudo_step = make_pseudo_label_step(0.0)
+    one = image[None].cuda()
+    prof = profile_device(lambda: pseudo_step(model, one, allowed), steps=4)
+    emit(phase="zs5 pseudo-label profile", pseudo_label_images_per_sec=sorted(rates)[1],
+         pseudo_label_images_per_sec_passes=rates, pseudo_label_images=n,
+         pseudo_label_device_ms_per_image=prof["device_busy_ms"] / 4,
+         pseudo_label_idle_share=prof.get("idle_share"),
+         pseudo_label_kernels=prof["kernels"][:8])
+    time_zs3_step(trainer, phase, "zs5 profile")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, k1
 
 
 def to_f64(trainer):
@@ -2622,6 +2928,7 @@ def main() -> int:
     phase_dilated()
     launches = phase_slice()
     zs3_launches = phase_zs3()
+    graph_launches = phase_graph()
     serve_launches = phase_serve()
     infer_launches = phase_infer()
     tta_launches = phase_tta()
@@ -2631,7 +2938,7 @@ def main() -> int:
     del seen
     gc.collect()
     torch.cuda.empty_cache()
-    phase_chained(seen_ckpt)
+    zs5_launches, zs5_k1 = phase_chained(seen_ckpt)
     # K5 on the trunk train-seen trained and wrote, reloaded from its checkpoint.
     k5_launches, k5_errors, k5_timings = phase_bottleneck(build_eval_model(trunk_cfg, "cuda"),
                                                           images)
@@ -2640,6 +2947,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_reference()
     phase_zs3_reference()
+    phase_graph_reference()
+    phase_zs5_reference()
     phase_serve_reference()
     phase_seen_reference()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -2657,6 +2966,8 @@ def main() -> int:
             "source": "zs3_tpu_torch/csrc/mmd_kernel_sum.cu",
             "replaces": f"zs3_tpu/ops/pallas_mmd.py:{source_line}",
             "launches": zs3_launches[key],
+            "launches_train_zs5": zs5_launches[key],
+            "launches_graph": graph_launches[key],
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
@@ -2676,6 +2987,9 @@ def main() -> int:
         "replaces": "zs3_tpu/ops/pallas_eval.py:30",
         "launches": launches,
         "launches_train_gmmn": zs3_launches["K1"],
+        "launches_train_zs5": zs5_launches["K1"],
+        "launches_graph": graph_launches["K1"],
+        "zs5_pseudo_label": zs5_k1,
         "max_abs_err": b4["max_abs_err"],
         "ms": b4["kernel_ms"],
         "plain_ms": b4["plain_ms"],

@@ -41,7 +41,7 @@ from zs3_tpu.utils.torch_convert import convert_gmmn
 from zs3_tpu_torch import cli
 from zs3_tpu_torch.core.config import Config
 from zs3_tpu_torch.data.loader import make_data_loader
-from zs3_tpu_torch.models.gmmn import build_gmmn
+from zs3_tpu_torch.models.gmmn import GraphContextGMMN, build_gmmn
 from zs3_tpu_torch.ops import mmd, mmd_kernels
 from zs3_tpu_torch.ops.sampling import downsample_labels, sample_class_pixels
 from zs3_tpu_torch.train import gmmn
@@ -221,8 +221,16 @@ def gmmn_cfg(jcfg):
 
 
 def test_graph_context_generator_is_refused():
-    with pytest.raises(NotImplementedError, match="graph"):
-        build_gmmn(dataclasses.replace(Config().gmmn, graph_context=True))
+    """The graph-context generator is built now; what stays refused is
+    loading its state into the plain generator, and the plain one's into
+    it (evaluate-gmmn without --graph-context on a graph checkpoint)."""
+    graph = build_gmmn(dataclasses.replace(Config().gmmn, graph_context=True))
+    plain = build_gmmn(Config().gmmn)
+    assert isinstance(graph, GraphContextGMMN) and not isinstance(plain, GraphContextGMMN)
+    with pytest.raises(RuntimeError, match="graph_embed"):
+        plain.load_state_dict(graph.state_dict())
+    with pytest.raises(RuntimeError, match="graph_embed"):
+        graph.load_state_dict(plain.state_dict())
 
 
 @pytest.mark.parametrize("self_training", [False, True])
@@ -306,7 +314,7 @@ def test_train_gmmn_defaults_to_the_gpu():
 
 
 @pytest.mark.parametrize("change", [
-    ("gmmn", "graph_context", True),
+    ("data", "dataset", "pascal"),  # graph_context is ported now
     ("train", "int8_features", True),
     ("data", "device_preprocess", True),
     ("train", "int8_eval", True),     # TTA (eval_scales/eval_flip) is ported now

@@ -130,7 +130,7 @@ def test_predict_sliding_matches_zs3_tpu(predictor_pair, rng):
 
 def test_predictor_refuses_int8(predictor_pair, rng):
     _, ours, _ = predictor_pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1, Quantization"):
         ours.quantize([_image(rng, 33, 33)])
 
 

@@ -4,13 +4,15 @@
     python -m zs3_tpu_torch.cli evaluate --dataset synthetic --unseen-split 2 --resume CKPT
     python -m zs3_tpu_torch.cli train-gmmn --dataset synthetic --unseen-split 2 --resume CKPT
     python -m zs3_tpu_torch.cli evaluate-gmmn --unseen-split 2 --resume CKPT --gmmn-resume CKPT
+    python -m zs3_tpu_torch.cli train-zs5 --dataset synthetic --unseen-split 2 --resume CKPT
+    python -m zs3_tpu_torch.cli train-gmmn --graph-context --unseen-split 2 --resume CKPT
     python -m zs3_tpu_torch.cli infer img1.png img2.jpg --output preds --fused-tail
     python -m zs3_tpu_torch.cli serve --port 8500 --serve-batch 8 --fused-tail
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
 the GPU unless --device cpu is given.  Checkpoints go to
-<checkpoint-dir>/<dataset>/<checkname>[-gmmn]/experiment_N/.
+<checkpoint-dir>/<dataset>/<checkname>[-gmmn|-zs5]/experiment_N/.
 """
 
 from __future__ import annotations
@@ -92,6 +94,9 @@ def _add_gmmn(p: argparse.ArgumentParser):
     p.add_argument("--embedding-path", type=str,
                    help="class embeddings (.npy/.pkl/.npz); default: the "
                         "synthetic classes' own")
+    p.add_argument("--graph-context", action="store_true", default=None,
+                   help="graph-context generator: condition on the classes of "
+                        "neighbouring regions (GraphContextGMMN)")
 
 
 def _add_int8(p: argparse.ArgumentParser):
@@ -154,7 +159,8 @@ def build_config(args: argparse.Namespace) -> Config:
             compute_dtype=args.compute_dtype,
             fused_tail=args.fused_tail,
         ),
-        gmmn=upd(cfg.gmmn, pixels_per_class=flag("pixels_per_class")),
+        gmmn=upd(cfg.gmmn, pixels_per_class=flag("pixels_per_class"),
+                 graph_context=flag("graph_context")),
         data=upd(
             cfg.data,
             dataset=args.dataset,
@@ -211,11 +217,12 @@ def make_parser() -> argparse.ArgumentParser:
     _add_common(evaluate)
     _add_checkpoints(evaluate)
     _add_int8(evaluate)
-    gmmn = sub.add_parser("train-gmmn")
-    _add_common(gmmn)
-    _add_checkpoints(gmmn)
-    _add_schedule(gmmn)
-    _add_gmmn(gmmn)
+    for name in ("train-gmmn", "train-zs5"):
+        train = sub.add_parser(name)
+        _add_common(train)
+        _add_checkpoints(train)
+        _add_schedule(train)
+        _add_gmmn(train)
     evaluate_gmmn = sub.add_parser("evaluate-gmmn")
     _add_common(evaluate_gmmn)
     _add_checkpoints(evaluate_gmmn)
@@ -236,14 +243,16 @@ def auto_resume(cfg: Config, command: str) -> Config:
     """cfg resuming from the newest checkpoint of the newest experiment of
     this stage, when there is one and no checkpoint is named.  Each stage
     saves under its own checkname (<checkname> for seen training and
-    evaluation, <checkname>-gmmn for the GMMN stage), so a stage never
-    restores another's state."""
+    evaluation, <checkname>-gmmn for the GMMN stage, <checkname>-zs5 for
+    ZS5), so a stage never restores another's state; the GMMN and ZS5
+    stages resume through gmmn_resume."""
     from zs3_tpu_torch.utils.saver import Saver
 
-    gmmn_stage = command in ("train-gmmn", "evaluate-gmmn")
-    field = "gmmn_resume" if gmmn_stage else "resume"
+    suffix = {"train-gmmn": "-gmmn", "evaluate-gmmn": "-gmmn", "train-zs5": "-zs5"}.get(
+        command, "")
+    field = "gmmn_resume" if suffix else "resume"
     exp = Saver.latest_experiment(cfg.train.checkpoint_dir, cfg.data.dataset,
-                                  cfg.train.checkname + ("-gmmn" if gmmn_stage else ""))
+                                  cfg.train.checkname + suffix)
     if exp and not getattr(cfg.train, field):
         ckpt = Saver.latest_checkpoint(exp)
         print(f"auto-resume: {ckpt}", file=sys.stderr)
@@ -254,18 +263,20 @@ def auto_resume(cfg: Config, command: str) -> Config:
 def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     """Run one command without printing: (its result, the object it ran:
     the SeenTrainer of `train-seen` and `evaluate`, the GMMNTrainer of
-    `train-gmmn` and `evaluate-gmmn`, the Predictor of `infer`, the
-    InferenceServer of `serve` once it stops)."""
+    `train-gmmn` and `evaluate-gmmn`, the ZS5Trainer of `train-zs5`, the
+    Predictor of `infer`, the InferenceServer of `serve` once it stops).
+    `train-zs5` pseudo-labels the train set (the count goes to stderr),
+    then trains."""
     args = make_parser().parse_args(argv)
     cfg = build_config(args)
     if getattr(args, "auto_resume", None):
         cfg = auto_resume(cfg, args.command)
     if getattr(args, "int8", False):
         raise SystemExit(f"{args.command} --int8: int8 inference is not ported yet "
-                         "(ROADMAP Queue 1 item 10)")
+                         "(see ROADMAP Queue 1, Quantization)")
     if getattr(args, "artifact", None):
         raise SystemExit("serve --artifact: exported artifacts are not ported yet "
-                         "(ROADMAP Queue 1 item 11)")
+                         "(see ROADMAP Queue 1, Export)")
 
     if args.command in ("train-seen", "evaluate"):
         from zs3_tpu_torch.train.seen import SeenTrainer
@@ -280,6 +291,12 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
         trainer = GMMNTrainer(cfg, device=args.device)
         if args.command == "evaluate-gmmn":
             return trainer.validate(epoch=0), trainer
+        return trainer.fit(), trainer
+    if args.command == "train-zs5":
+        from zs3_tpu_torch.train.self_training import ZS5Trainer
+
+        trainer = ZS5Trainer(cfg, device=args.device)
+        print(f"pseudo-labeled {trainer.pseudo_label()} images", file=sys.stderr)
         return trainer.fit(), trainer
     if args.command == "infer":
         from zs3_tpu_torch.train.predict import Predictor

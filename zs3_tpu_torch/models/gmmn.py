@@ -4,8 +4,12 @@ An MLP mapping concat(class embedding, noise) to a synthetic 256-d pixel
 feature (reference: zs3/modeling/gmmn.py GMMNnetwork), trained against
 real features with the MMD loss.  Layers are `nn.Linear` named
 ``hidden0..`` and ``out``, so zs3_tpu's Dense params carry over by name
-(zs3_tpu_torch.utils.convert.gmmn_state_dict_from_flax).  The
-graph-context variant comes with the ZS5/graph slice.
+(zs3_tpu_torch.utils.convert.gmmn_state_dict_from_flax).
+
+GraphContextGMMN is the spatial-context-prior variant (arXiv:1906.00817
+§3.3): generation is also conditioned on the class embeddings of up to
+K neighbouring regions, embedded by ``graph_embed`` and averaged under a
+validity mask.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ class GMMNGenerator(nn.Module):
         self, embedding: torch.Tensor, noise: torch.Tensor, deterministic: bool = True
     ) -> torch.Tensor:
         """(..., embed_dim), (..., noise_dim) -> (..., feature_dim), f32."""
-        x = torch.cat([embedding.float(), noise.float()], dim=-1)
+        return self.mlp(torch.cat([embedding.float(), noise.float()], dim=-1), deterministic)
+
+    def mlp(self, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
         for i in range(self.num_hidden):
             x = F.leaky_relu(getattr(self, f"hidden{i}")(x), self.leaky_slope)
             if self.dropout is not None and not deterministic:
@@ -53,15 +59,52 @@ class GMMNGenerator(nn.Module):
         return F.relu(self.out(x))
 
 
+class GraphContextGMMN(GMMNGenerator):
+    """GMMNGenerator conditioned on the neighbouring regions' classes.
+
+    `neighbors` (..., K, embed_dim) holds up to K neighbour class
+    embeddings and `neighbor_mask` (..., K) which of them are real (the
+    fixed-size encoding of a variable-degree region graph).  Each
+    neighbour goes through ``graph_embed`` and a leaky ReLU, a masked mean
+    aggregates them (an empty list gives a zero context), and the context
+    joins (embedding, noise) at the MLP's input.
+    """
+
+    def __init__(
+        self,
+        noise_dim: int = 300,
+        embed_dim: int = 300,
+        hidden_dim: int = 256,
+        feature_dim: int = 256,
+        context_dim: int = 256,
+        num_hidden: int = 1,
+        dropout_rate: float = 0.0,
+        leaky_slope: float = 0.2,
+    ):
+        # The MLP's input is (embedding, noise, context).
+        super().__init__(noise_dim + context_dim, embed_dim, hidden_dim, feature_dim,
+                         num_hidden, dropout_rate, leaky_slope)
+        self.graph_embed = nn.Linear(embed_dim, context_dim)
+
+    def forward(
+        self,
+        embedding: torch.Tensor,
+        noise: torch.Tensor,
+        neighbors: torch.Tensor,
+        neighbor_mask: torch.Tensor,
+        deterministic: bool = True,
+    ) -> torch.Tensor:
+        h = F.leaky_relu(self.graph_embed(neighbors.float()), self.leaky_slope)
+        w = neighbor_mask.float()[..., None]
+        context = (h * w).sum(-2) / torch.clamp(w.sum(-2), min=1.0)
+        x = torch.cat([embedding.float(), noise.float(), context], dim=-1)
+        return self.mlp(x, deterministic)
+
+
 def build_gmmn(cfg: GMMNConfig) -> GMMNGenerator:
-    """The generator for `cfg` with default-initialised weights (see
-    init_gmmn for the seeded init)."""
-    if cfg.graph_context:
-        raise NotImplementedError(
-            "graph_context=True needs GraphContextGMMN, which comes with the "
-            "ZS5/graph slice"
-        )
-    return GMMNGenerator(
+    """The plain or graph-context generator for `cfg` with
+    default-initialised weights (see init_gmmn for the seeded init)."""
+    common = dict(
         noise_dim=cfg.noise_dim,
         embed_dim=cfg.embed_dim,
         hidden_dim=cfg.hidden_dim,
@@ -70,6 +113,9 @@ def build_gmmn(cfg: GMMNConfig) -> GMMNGenerator:
         dropout_rate=cfg.dropout_rate,
         leaky_slope=cfg.leaky_slope,
     )
+    if cfg.graph_context:
+        return GraphContextGMMN(context_dim=cfg.graph_hidden_dim, **common)
+    return GMMNGenerator(**common)
 
 
 @torch.no_grad()

@@ -112,11 +112,11 @@ class SegmentationService:
     ):
         if artifact:
             raise NotImplementedError(
-                "serving an exported artifact is not ported yet: ROADMAP Queue 1 item 11"
+                "serving an exported artifact is not ported yet: see ROADMAP Queue 1, Export"
             )
         if int8_calib_images:
             raise NotImplementedError(
-                "int8 serving is not ported yet: ROADMAP Queue 1 items 10-11"
+                "int8 serving is not ported yet: see ROADMAP Queue 1, Quantization"
             )
         self.cfg = cfg
         self.batcher: Optional[_MicroBatcher] = None

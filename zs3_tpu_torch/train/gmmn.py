@@ -11,6 +11,13 @@ Per batch, with the seen-class trunk frozen (SURVEY.md §3.3):
   3. classifier step: generated unseen-class features next to real seen
      ones retrain the split 1x1 classifier with CE; Adam on it.
 
+With `gmmn.graph_context` the generator is GraphContextGMMN: each sampled
+pixel conditions on its own image's class-adjacency graph (computed on
+the full-resolution labels), and slots without a real pixel on the
+batch's graph with `generic_context_fallback`.  With
+`gmmn.self_training` (ZS5, train/self_training.py) pseudo-labelled unseen
+pixels are real features for both updates.
+
 The MMD runs on `KernelSum` (kernels K2/K3, ops/mmd_kernels.py) on the
 GPU, and on their plain versions on the CPU.  Validation
 splices the retrained classifier into the trunk and reports
@@ -38,7 +45,10 @@ from zs3_tpu_torch.metrics.evaluator import Evaluator
 from zs3_tpu_torch.models.deeplab import DeepLab
 from zs3_tpu_torch.models.gmmn import GMMNGenerator, build_gmmn, init_gmmn
 from zs3_tpu_torch.ops.mmd_kernels import batched_kernel_mmd_loss
-from zs3_tpu_torch.ops.sampling import downsample_labels, draw_scores, sample_class_pixels
+from zs3_tpu_torch.ops.sampling import (
+    downsample_labels, draw_scores, neighbor_lists_from_adjacency, per_image_adjacency,
+    sample_class_pixels, top_k_lower_first,
+)
 from zs3_tpu_torch.train.seen import (
     build_eval_model, device_batch, select_eval_step, step_generator,
 )
@@ -47,6 +57,7 @@ from zs3_tpu_torch.utils.saver import Saver
 
 Params = Dict[str, torch.Tensor]
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+Context = Optional[Tuple[torch.Tensor, torch.Tensor]]  # neighbour ids, validity (C, P, K)
 
 
 def extract_classifier(model: DeepLab) -> Params:
@@ -104,6 +115,25 @@ def classifier_training_set(
     return feats, mask
 
 
+def generic_context_fallback(
+    nb: torch.Tensor, nbm: torch.Tensor, adj: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Give the classes with an empty neighbour list the batch's generic
+    context: the K classes of highest total adjacency mass (ties to the
+    lower id, as `jax.lax.top_k`).
+
+    Classes absent from the batch (every unseen class in ZS3, whose
+    images are filtered out) have empty adjacency rows, a zero context
+    the generator never sees in training; generating unseen features from
+    it collapses zero-shot transfer (zs3_tpu.train.gmmn measured unseen
+    mIoU 0.027 against 0.194 plain on the context-tint synthetic split)."""
+    mass_vals, mass_idx = top_k_lower_first(adj.sum(0), nb.shape[-1])
+    row_empty = (nbm.sum(-1) == 0)[:, None]
+    nb = torch.where(row_empty, mass_idx[None, :].to(nb.dtype), nb)
+    nbm = torch.where(row_empty, (mass_vals > 0).float()[None, :], nbm)
+    return nb, nbm
+
+
 def select_mmd(backend: str, device: Union[str, torch.device]):
     """The batched MMD for `mmd_backend` on `device`.
 
@@ -126,10 +156,11 @@ class ZS3Step:
     """One ZS3 step (zs3_tpu.train.gmmn.make_zs3_step): features ->
     sample -> generator MMD update -> classifier CE update.
 
-    Holds the generator, the classifier params {"kernel", "bias"} and
-    their Adam optimizers.  Step `step`'s draws are a function of (seed,
-    step) alone (zs3_tpu folds the step into its key), so a resumed run
-    draws what an uninterrupted one would.  `body` also takes the draws
+    Holds the generator (GraphContextGMMN with cfg.gmmn.graph_context),
+    the classifier params {"kernel", "bias"} and their Adam optimizers.
+    Step `step`'s draws are a function of (seed, step) alone (zs3_tpu
+    folds the step into its key), so a resumed run draws what an
+    uninterrupted one would; the graph branch draws nothing.  `body` also takes the draws
     as an argument (tests feed it zs3_tpu's); the gradients of the last
     update stay in the parameters' `.grad`.
     """
@@ -154,6 +185,8 @@ class ZS3Step:
         self.noise_dim = cfg.gmmn.noise_dim
         self.sigmas = tuple(float(s) for s in cfg.gmmn.mmd_sigmas)
         self.self_training = cfg.gmmn.self_training
+        self.graph_context = cfg.gmmn.graph_context
+        self.max_neighbors = cfg.gmmn.max_graph_neighbors
         self.device = embeddings.device
         self.mmd_fn = select_mmd(cfg.gmmn.mmd_backend, self.device)
         self.cls = {k: v.detach().clone().requires_grad_(True) for k, v in cls_params.items()}
@@ -181,27 +214,53 @@ class ZS3Step:
         noise2 = torch.randn(shape, generator=rng, device=self.device)
         return u, noise1, noise2
 
-    def generate(self, noise: torch.Tensor) -> torch.Tensor:
-        """(C, P, feature_dim) features for every class from its embedding."""
+    def generate(self, noise: torch.Tensor, context: Context = None) -> torch.Tensor:
+        """(C, P, feature_dim) features for every class from its embedding,
+        and from its slots' neighbour embeddings under graph context."""
         emb = self.embeddings[:, None].expand(-1, noise.shape[1], -1)
-        return self.generator(emb, noise)
+        if context is None:
+            return self.generator(emb, noise)
+        neighbors, mask = context
+        return self.generator(emb, noise, self.embeddings[neighbors.long()], mask)
 
-    def sample(self, feats, labels, u) -> Tuple[torch.Tensor, torch.Tensor]:
-        return sample_class_pixels(feats, labels, self.num_classes, self.budget, u)
+    def sample(self, feats, labels, u, return_indices: bool = False):
+        return sample_class_pixels(feats, labels, self.num_classes, self.budget, u,
+                                   return_indices=return_indices)
 
-    def generator_update(self, real, real_mask, noise1) -> torch.Tensor:
+    def context(self, batch_labels: torch.Tensor, pix_idx: torch.Tensor,
+                real_mask: torch.Tensor, grid_pixels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(neighbour ids (C, P, K), validity (C, P, K)) of the sampled
+        slots: a real pixel takes its image's neighbour list of its class,
+        an empty slot the batch's, with the generic fallback.  The graphs
+        come from the full-resolution (B, H, W) labels; `pix_idx` (C, P)
+        indexes the feature grid, `grid_pixels` (h * w) to an image, so its
+        image is pix_idx // grid_pixels."""
+        c, k = self.num_classes, self.max_neighbors
+        adj_img = per_image_adjacency(batch_labels, c)  # (B, C, C)
+        nb_img, nbm_img = neighbor_lists_from_adjacency(adj_img, k)  # (B, C, K)
+        img_ids = pix_idx // grid_pixels
+        rows = torch.arange(c, device=pix_idx.device)[:, None]
+        nb_pix, nbm_pix = nb_img[img_ids, rows], nbm_img[img_ids, rows]  # (C, P, K)
+        adj_b = adj_img.sum(0)
+        nb_b, nbm_b = generic_context_fallback(*neighbor_lists_from_adjacency(adj_b, k), adj_b)
+        has_pixel = real_mask[..., None] > 0
+        return (torch.where(has_pixel, nb_pix, nb_b[:, None]),
+                torch.where(has_pixel, nbm_pix, nbm_b[:, None]))
+
+    def generator_update(self, real, real_mask, noise1, context: Context = None) -> torch.Tensor:
         fake_mask, mmd_real_mask = mmd_training_masks(
             real_mask, self.seen_mask, self.self_training
         )
         self.gen_opt.zero_grad(set_to_none=True)
-        mmd = self.mmd_fn(self.generate(noise1), real, fake_mask, mmd_real_mask, self.sigmas)
+        fake = self.generate(noise1, context)
+        mmd = self.mmd_fn(fake, real, fake_mask, mmd_real_mask, self.sigmas)
         mmd.backward()
         self.gen_opt.step()
         return mmd.detach()
 
-    def classifier_update(self, real, real_mask, noise2) -> torch.Tensor:
+    def classifier_update(self, real, real_mask, noise2, context: Context = None) -> torch.Tensor:
         with torch.no_grad():
-            fake_all = self.generate(noise2)
+            fake_all = self.generate(noise2, context)
         feats, mask = classifier_training_set(
             real, real_mask, fake_all, self.unseen_mask, self.self_training
         )
@@ -221,9 +280,15 @@ class ZS3Step:
         """The step on `batch` with the given draws, or with step `step`'s."""
         feats, labels = self.features(batch)
         u, noise1, noise2 = draws if draws is not None else self.draw(labels.shape[0], step)
-        real, real_mask = self.sample(feats, labels, u)
-        mmd = self.generator_update(real, real_mask, noise1)
-        ce = self.classifier_update(real, real_mask, noise2)
+        context = None
+        if self.graph_context:
+            real, real_mask, pix_idx = self.sample(feats, labels, u, return_indices=True)
+            grid_pixels = labels.shape[0] // batch["label"].shape[0]
+            context = self.context(batch["label"], pix_idx, real_mask, grid_pixels)
+        else:
+            real, real_mask = self.sample(feats, labels, u)
+        mmd = self.generator_update(real, real_mask, noise1, context)
+        ce = self.classifier_update(real, real_mask, noise2, context)
         return {"mmd": mmd, "cls_ce": ce}
 
     __call__ = body
@@ -246,7 +311,6 @@ def make_zs3_eval_step(
 def refuse_unported(cfg: Config):
     """Raise for the settings whose code paths are not ported yet."""
     unported = {
-        "gmmn.graph_context": cfg.gmmn.graph_context,
         "train.int8_features": cfg.train.int8_features,
         "data.device_preprocess": cfg.data.device_preprocess,
         "train.int8_eval": cfg.train.int8_eval,

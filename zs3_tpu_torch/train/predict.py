@@ -64,7 +64,7 @@ class Predictor:
 
     def quantize(self, calib_images: Iterable[np.ndarray], *args, **kwargs) -> int:
         raise NotImplementedError(
-            "int8 PTQ inference is not ported yet: ROADMAP Queue 1 item 10"
+            "int8 PTQ inference is not ported yet: see ROADMAP Queue 1, Quantization"
         )
 
     @torch.inference_mode()
