@@ -43,6 +43,19 @@ just after:
     its checkpoint, in eval mode at eval batch 4: one launch per block
     (and, before the paths, K5 on small and ragged shapes and its
     refusal of bf16 widths that are not multiples of 64).
+  * on fabricated trees (build/chip_smoke_data/, removed at the end):
+    a VOC2012 (48 train, 16 val), SBD (32) and Pascal-Context (24, 8)
+    tree, the Context labels rebuilt by `prepare-context` from their
+    detail-API JSON, VOC and Context registries by `build-embeddings`
+    from a 300-d word2vec binary; `train-seen --use-sbd` at BASELINE
+    config 3's split (10 unseen, device_preprocess on through --config),
+    from its checkpoint `train-gmmn`, `evaluate-gmmn` and `evaluate`;
+    a 59-class `train-seen --dataset context --unseen-split 4`, and from
+    it `train-zs5` and `train-gmmn --graph-context` (configs 4 and 5),
+    each with its K1/K2/K3 launches; K1 at 59 classes (f32, bf16, ZS5's
+    restricted logits) and K2/K3 at the Context step's shape against
+    their plain versions; the loader's images/s, one batch's copy to the
+    card, and the seen step fed by the loader beside bypassing it.
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
@@ -369,7 +382,9 @@ def phase_kernels():
         ((16, 129, 129, 21), (513, 513), f32, True),  # main path, eval batch 16
         ((4, 129, 129, 21), (513, 513), bf16, True),  # the model's bf16 logits
         ((16, 129, 129, 21), (513, 513), bf16, True),
-        ((3, 17, 17, 59), (65, 65), f32, False),      # Pascal-Context class count
+        ((4, 129, 129, 59), (513, 513), f32, True),   # Pascal-Context's 59 classes
+        ((4, 129, 129, 59), (513, 513), bf16, True),  # (bf16 rows of 15,222 bytes)
+        ((3, 17, 17, 59), (65, 65), f32, False),
         ((1, 9, 11, 7), (33, 45), f32, False),        # ragged rows and columns
         ((1, 9, 11, 7), (33, 45), bf16, False),
         ((2, 17, 17, 21), (65, 65), f32, False),
@@ -404,19 +419,31 @@ def phase_kernels():
                     nchw, size=size, mode="bilinear", align_corners=True).argmax(1), what=what),
                 host_ms=host_ms(lambda: upsample_argmax(logits, size)),
             )
-            timings[(shape[0], row["dtype"])] = row
+            timings[(shape[0], shape[-1], row["dtype"])] = row
         emit(**row)
-    # ZS5's restricted logits at a 4x and a ragged geometry: only allowed
-    # classes, the plain version's labels.
-    for shape, size in (((4, 129, 129, 21), (513, 513)), ((2, 11, 11, 21), (45, 45))):
+    # ZS5's restricted logits at a 4x and a ragged geometry, and as the
+    # Context pseudo-label pass makes them (one image, 59 classes, timed):
+    # only allowed classes, the plain version's labels.
+    for shape, size in (((4, 129, 129, 21), (513, 513)), ((2, 11, 11, 21), (45, 45)),
+                        ((1, 129, 129, 59), (513, 513))):
         logits, allowed = restricted_logits(gen, shape)
         got = upsample_argmax(logits, size)
         want = upsample_argmax_reference(logits, size)
         ties, err = compare_labels(got, want, logits, size, "kernels", f"restricted {shape}")
         check(bool(allowed[got.long()].all()), "kernels",
               f"restricted {shape}: a class not allowed won")
-        emit(phase="kernels", kernel="upsample_argmax", case="finfo.min restricted",
-             shape=list(shape), size=list(size), near_ties=ties, max_abs_err=err, ok=True)
+        row = dict(phase="kernels", kernel="upsample_argmax", case="finfo.min restricted",
+                   shape=list(shape), size=list(size), near_ties=ties, max_abs_err=err, ok=True)
+        if shape[-1] == 59:
+            what, nchw = f"restricted {shape}", logits.permute(0, 3, 1, 2)
+            row["bound_ms"], row["bound_by"] = k1_bound(*shape, *size)
+            row.update(
+                kernel_ms=time_ms(lambda: upsample_argmax(logits, size), what=what),
+                plain_ms=time_ms(lambda: upsample_argmax_reference(logits, size), what=what),
+                library_ms=time_ms(lambda: F.interpolate(
+                    nchw, size=size, mode="bilinear", align_corners=True).argmax(1), what=what))
+            timings[("restricted", 59)] = row
+        emit(**row)
     for dtype in (f32, bf16):
         flat = torch.zeros((1, 8, 8, 4), device="cuda", dtype=dtype)
         got = upsample_argmax(flat, (16, 16))
@@ -2292,10 +2319,12 @@ def step_mmd_inputs(trainer):
     """(fake, real, fake_mask, real_mask) of the trainer's generator MMD on
     its first train batch: the inputs its step hands K2 and K3."""
     from zs3_tpu_torch.train.gmmn import mmd_training_masks
-    from zs3_tpu_torch.train.seen import device_batch
+    from zs3_tpu_torch.train.seen import device_batch, preprocess_on_device
 
     step = trainer.step
     batch = device_batch(next(iter(trainer.train_loader)), torch.device("cuda"))
+    if step.device_preprocess:
+        batch = preprocess_on_device(batch, step.seed, 0)
     feats, labels = step.features(batch)
     u, noise1, _ = step.draw(labels.shape[0], 0)
     real, real_mask, pix_idx = step.sample(feats, labels, u, return_indices=True)
@@ -2833,6 +2862,332 @@ def phase_zs5(seen_ckpt):
     return launches, k1
 
 
+DATA_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_data")
+DATA_STEPS = 2  # train steps of each data path
+DATA_EPOCHS = 3  # epochs of the VOC+SBD train loader timed, each alone
+DATA_FED_STEPS = 6  # seen steps timed in a window fed by the loader (2 before it)
+
+
+def data_args(command, dataset, split, *extra):
+    """`command` at full width on the fabricated trees of DATA_ROOT."""
+    width = [a for a in FULL_WIDTH if a not in ("--dataset", "synthetic")]
+    return [command, *width, "--dataset", dataset, "--data-root", DATA_ROOT,
+            "--unseen-split", str(split), "--batch-size", "8", "--eval-batch-size", "4",
+            *CKPT_ARGS, *extra]
+
+
+def data_trees(phase):
+    """Fabricate the VOC2012 (48 train, 16 val; BASELINE config 3's 10
+    unseen classes), SBD (32) and Pascal-Context (24 train, 8 val; split 4)
+    trees in VOC's four sizes; write the Context tree's detail-API JSON and
+    rebuild its labels with `prepare-context`; build the VOC and Context
+    registries with `build-embeddings` from a fabricated 300-d word2vec
+    binary.  Returns the registries' paths."""
+    import numpy as np
+    from PIL import Image
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.core.config import context_unseen_split, voc_unseen_split
+    from zs3_tpu_torch.data import fabricate
+    from zs3_tpu_torch.data.classes import CONTEXT_CLASSES, VOC_CLASSES
+
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    t0 = time.time()
+    voc = fabricate.fabricate_voc_tree(DATA_ROOT, 48, 16, unseen_classes=voc_unseen_split(10))
+    sbd = fabricate.fabricate_sbd_tree(DATA_ROOT, 32, unseen_classes=voc_unseen_split(10))
+    ctx = fabricate.fabricate_context_tree(DATA_ROOT, 24, 8,
+                                           unseen_classes=context_unseen_split(4))
+    fabricate_s = time.time() - t0
+
+    # prepare-context: the detail JSON of the Context tree, its labels and
+    # split lists removed, then rebuilt from the JSON; they must come back.
+    base = os.path.join(DATA_ROOT, "VOC2010")
+    label_dir = os.path.join(base, "SegmentationClassContext")
+    want = {n: np.asarray(Image.open(os.path.join(label_dir, n))) for n in os.listdir(label_dir)}
+    detail = os.path.join(DATA_ROOT, "trainval_merged.json")
+    made = fabricate.fabricate_context_detail_json(DATA_ROOT, detail)
+    shutil.rmtree(label_dir)
+    shutil.rmtree(os.path.join(base, "ImageSets"))
+    t0 = time.time()
+    stats, _ = cli.run(["prepare-context", detail, "--data-root", DATA_ROOT])
+    prepare_s = time.time() - t0
+    got = sorted(os.listdir(label_dir))
+    check(got == sorted(want) and all(
+        np.array_equal(np.asarray(Image.open(os.path.join(label_dir, n))), want[n])
+        for n in got), phase, "prepare-context did not rebuild the Context tree's labels")
+    check(stats["images"] == 32 and stats["train"] == 24 and stats["val"] == 8
+          and stats["matched_classes"] == 59, phase, f"prepare-context: {stats}")
+
+    vectors = fabricate.fabricate_word_vectors(os.path.join(DATA_ROOT, "w2v.bin"),
+                                               VOC_CLASSES + CONTEXT_CLASSES, dim=300)
+    registries, reports = {}, {}
+    for dataset, names in (("pascal", VOC_CLASSES), ("context", CONTEXT_CLASSES)):
+        registries[dataset] = os.path.join(DATA_ROOT, f"{dataset}_w2v.npy")
+        reports[dataset], _ = cli.run(["build-embeddings", vectors, "--output",
+                                       registries[dataset], "--dataset", dataset])
+        emb = np.load(registries[dataset])
+        check(emb.shape == (len(names), 300)
+              and np.allclose(np.linalg.norm(emb, axis=1), 1.0, atol=1e-5), phase,
+              f"build-embeddings {dataset}: {emb.shape}")
+    emit(phase=phase, step="trees", voc=voc, sbd=sbd, context=ctx, fabricate_seconds=fabricate_s,
+         detail_json=made, prepare_context=stats, prepare_context_seconds=prepare_s,
+         build_embeddings={k: {f: v[f] for f in ("classes", "dim", "norm_min", "norm_max")}
+                           for k, v in reports.items()}, ok=True)
+    return registries
+
+
+def loader_numbers(phase, cfg):
+    """The train loader's images/s (batch 8, 513² crops from the
+    fabricated JPEGs, pinned batches; each of DATA_EPOCHS epochs of
+    VOC+SBD timed from its first request to its last batch, the median
+    epoch's rate) at 4 workers and os.cpu_count(), host-normalized and
+    with device_preprocess; and the host-to-device ms of one batch, uint8
+    from pinned memory against f32 from pageable memory (CUDA events,
+    median of 10)."""
+    import numpy as np
+
+    from zs3_tpu_torch.data.loader import make_train_loader
+
+    rates = {}
+    for workers in (4, os.cpu_count()):
+        for preprocess in (False, True):
+            data = dataclasses.replace(cfg.data, num_workers=workers,
+                                       device_preprocess=preprocess)
+            loader, _ = make_train_loader(data, pin_memory=True)
+            epochs = []
+            for epoch in range(DATA_EPOCHS):
+                loader.set_epoch(epoch)
+                t0 = time.perf_counter()
+                n = 0
+                for batch in loader:
+                    n += batch["image"].shape[0]
+                epochs.append(n / (time.perf_counter() - t0))
+            check(batch["image"].is_pinned() and batch["image"].dtype == (
+                torch.uint8 if preprocess else torch.float32), phase,
+                f"loader batch {batch['image'].dtype}, pinned {batch['image'].is_pinned()}")
+            key = f"{workers}_workers_{'device_preprocess' if preprocess else 'host_normalized'}"
+            rates[key] = {"images_per_sec": sorted(epochs)[len(epochs) // 2],
+                          "images_per_epoch": n, "epochs_images_per_sec": epochs}
+    shape = (8, 513, 513, 3)
+    pinned = torch.from_numpy(np.zeros(shape, np.uint8)).pin_memory()
+    pageable = torch.from_numpy(np.zeros(shape, np.float32))
+
+    def h2d_ms(x):
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            x.to("cuda", non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[5]
+
+    h2d = {"uint8_pinned_ms": h2d_ms(pinned), "uint8_pinned_bytes": pinned.numel(),
+           "f32_pageable_ms": h2d_ms(pageable), "f32_pageable_bytes": 4 * pageable.numel()}
+    emit(phase=phase, step="loader", batch=8, crop=513, cpu_count=os.cpu_count(),
+         loader=rates, host_to_device=h2d)
+    return rates, h2d
+
+
+def seen_fed_and_bypassed(phase, trainer):
+    """The seen step (train batch 8, 513²) on the trainer `train-seen`
+    ran, with device_preprocess off and on: steps/s fed by the loader
+    (pinned batches copied as they come; in each of 3 rounds, for each
+    mode in turn, a fresh epoch, 2 steps to fill the queue, then
+    DATA_FED_STEPS steps timed on the host clock to a synchronize; the
+    median round) beside steps/s on batches already on the card (3
+    windows of 10), the device ms per step (profiler, 3 steps) and each
+    rate's idle share."""
+    from zs3_tpu_torch.data.loader import make_train_loader
+    from zs3_tpu_torch.train.seen import device_batch, make_train_step
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    cfg, cuda = trainer.cfg, torch.device("cuda")
+    modes = {}
+    for preprocess in (False, True):
+        data = dataclasses.replace(cfg.data, device_preprocess=preprocess)
+        modes[preprocess] = (make_train_loader(data, pin_memory=True)[0], make_train_step(
+            trainer.loss_fn, cfg.optim.loss_at, cfg.train.grad_accum, cfg.train.seed,
+            preprocess))
+    fed = {False: [], True: []}
+    for round_ in range(3):
+        for preprocess, (loader, step) in modes.items():
+            loader.set_epoch(round_)
+            feed = iter(loader)
+            fed_step = lambda: step(trainer.model, trainer.optimizer,
+                                    device_batch(next(feed), cuda))
+            for _ in range(2):
+                fed_step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DATA_FED_STEPS):
+                fed_step()
+            torch.cuda.synchronize()
+            fed[preprocess].append(DATA_FED_STEPS / (time.perf_counter() - t0))
+            feed.close()
+    out = {}
+    for preprocess, (loader, step) in modes.items():
+        on_card = [device_batch(b, cuda) for _, b in zip(range(4), loader)]
+        turn = itertools.cycle(on_card)
+        bypass_step = lambda: step(trainer.model, trainer.optimizer, next(turn))
+        bypassed, windows = rate_windows(bypass_step, calls=10, windows=3)
+        prof = profile_device(bypass_step, steps=3)
+        device_ms = prof["device_busy_ms"] / 3
+        rate = sorted(fed[preprocess])[1]
+        key = "device_preprocess" if preprocess else "host_normalized"
+        out[key] = {
+            "fed_steps_per_sec": rate, "fed_rounds": fed[preprocess],
+            "bypassed_steps_per_sec": bypassed, "bypassed_windows": windows,
+            "device_ms_per_step": device_ms,
+            "fed_idle_share": 1.0 - device_ms * rate / 1e3,
+            "bypassed_idle_share": 1.0 - device_ms * bypassed / 1e3,
+            "image_dtype": str(on_card[0]["image"].dtype).split(".")[-1],
+        }
+        check(is_finite(rate) and is_finite(bypassed) and device_ms > 0, phase,
+              f"seen step rates {out[key]}")
+    emit(phase=phase, step="seen step fed by the loader against bypassing it", batch=8,
+         fed_steps=DATA_FED_STEPS, num_workers=cfg.data.num_workers, **out)
+    return out
+
+
+def phase_data():
+    """The data layer and the real-data paths at full width (R101, os16,
+    513², bf16) on fabricated trees: `train-seen` on VOC2012+SBD at BASELINE
+    config 3's split (10 unseen) with device_preprocess (a --config), then
+    from its checkpoint `train-gmmn` (device_preprocess too, the VOC
+    registry), `evaluate-gmmn` and `evaluate`; `train-seen` on Context at
+    split 4 (a 59-class trunk, --no-val), then from it `train-zs5` and
+    `train-gmmn --graph-context` (configs 4 and 5) with the Context
+    registry.  Each path with the counts from 0 and the launches it must
+    make; K2/K3 against their plain versions at the Context steps' inputs
+    (C = 59, after the VOC step's C = 21 in this process), and timed
+    there; the loader's numbers and the seen step fed by it."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+    from zs3_tpu_torch.train.self_training import _gt_view
+    from zs3_tpu_torch.utils.saver import Saver
+
+    phase = "data"
+    t_phase = time.time()
+    registries = data_trees(phase)
+    dp_config = os.path.join(DATA_ROOT, "device_preprocess.json")
+    with open(dp_config, "w") as f:
+        json.dump({"data": {"device_preprocess": True}}, f)
+    steps = ["--epochs", "1", "--steps-per-epoch", str(DATA_STEPS)]
+    paths, launches = {}, {}
+
+    def run(name, argv, want):
+        """cli.run(argv) with the counts from 0; want(trainer) is the
+        launches it must make."""
+        reset_counts()
+        t0 = time.time()
+        result, trainer = cli.run(argv)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        expected = want(trainer)
+        check(launches[name] == expected, phase,
+              f"{name}: launches {launches[name]}, want {expected}")
+        check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
+              f"{name}: non-finite results {result}")
+        paths[name] = {"command": "python -m zs3_tpu_torch.cli " + " ".join(argv),
+                       "result": result, "launches": launches[name],
+                       "wall_seconds_with_setup": time.time() - t0}
+        emit(phase=phase, path=name, **paths[name])
+        return result, trainer
+
+    def evals(trainer, k2=0, k3=0, k1_extra=0):
+        return {"K1": len(trainer.val_loader) + k1_extra, "K2": k2, "K3": k3, "K4": 0, "K5": 0}
+
+    voc = ["--use-sbd"]
+    _, seen = run("train-seen pascal", data_args(
+        "train-seen", "pascal", 10, *voc, *steps, "--config", dp_config), evals)
+    check(seen.cfg.data.device_preprocess and seen.step == DATA_STEPS
+          and len(seen.val_loader.dataset) == 16, phase, "train-seen pascal: not the asked run")
+    seen_ckpt = Saver.latest_checkpoint(seen.saver.directory)
+    loader_rates, h2d = loader_numbers(phase, seen.cfg)
+    fed = seen_fed_and_bypassed(phase, seen)
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emb = ["--embedding-path", registries["pascal"]]
+    _, trainer = run("train-gmmn pascal", data_args(
+        "train-gmmn", "pascal", 10, *voc, *steps, *emb, "--resume", seen_ckpt,
+        "--config", dp_config), lambda t: evals(t, 3 * DATA_STEPS, 2 * DATA_STEPS))
+    check(trainer.step.device_preprocess and trainer.embeddings.shape == (21, 300), phase,
+          "train-gmmn pascal: not the asked run")
+    gmmn_ckpt = Saver.latest_checkpoint(trainer.saver.directory)
+    del trainer
+    run("evaluate-gmmn pascal", data_args("evaluate-gmmn", "pascal", 10, *emb, "--resume",
+                                          seen_ckpt, "--gmmn-resume", gmmn_ckpt), evals)
+    run("evaluate pascal", data_args("evaluate", "pascal", 10, "--resume", seen_ckpt), evals)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, seen = run("train-seen context", data_args(
+        "train-seen", "context", 4, *steps, "--no-val"),
+        lambda t: {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0})
+    check(seen.num_classes == 59, phase, f"a {seen.num_classes}-class Context trunk")
+    ctx_ckpt = Saver.latest_checkpoint(seen.saver.directory)
+    del seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = ["--embedding-path", registries["context"]]
+
+    def zs5_want(t):  # K1 once per tagged train image too
+        tagged = tagged_images(_gt_view(t.train_loader.dataset), list(t.unseen))
+        return evals(t, 3 * DATA_STEPS, 2 * DATA_STEPS, k1_extra=len(tagged))
+
+    _, zs5 = run("train-zs5 context", data_args(
+        "train-zs5", "context", 4, *steps, *emb, "--resume", ctx_ckpt), zs5_want)
+    check(zs5.num_classes == 59 and len(os.listdir(zs5.pseudo_dir)) > 0, phase,
+          "train-zs5 context: no pseudo-labels")
+    errors = {"train-zs5 context": check_k2_k3(*step_mmd_inputs(zs5), "zs5 context step")}
+    del zs5
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, graph = run("train-gmmn --graph-context context", data_args(
+        "train-gmmn", "context", 4, *steps, *emb, "--resume", ctx_ckpt, "--graph-context"),
+        lambda t: evals(t, 3 * DATA_STEPS, 2 * DATA_STEPS))
+    inputs = step_mmd_inputs(graph)
+    errors["train-gmmn --graph-context context"] = check_k2_k3(*inputs, "graph context step")
+    emit(phase=phase, check="K2/K3 at the Context steps' inputs against their plain versions",
+         shape=list(inputs[0].shape), **errors, ok=True)
+
+    # K2 and K3 timed at the Context step's shape, as the step calls them.
+    x, y, wx, wy = inputs
+    c, n, d = x.shape
+    m = y.shape[1]
+    bounds = mmd_bounds(c, n, m, d, len(sig))
+    c59 = {"shape": [c, n, m, d]}
+    for name, kernel, plain in (
+        ("K2", lambda: mk.kernel_sum(x, y, wx, wy, sig),
+         lambda: mk.kernel_sum_reference(x, y, wx, wy, sig)),
+        ("K3", lambda: mk.kernel_sum_grad(x, y, wx, wy, sig, with_dwx=False),
+         lambda: mk.kernel_sum_grad_reference(x, y, wx, wy, sig, with_dwx=False)),
+    ):
+        c59[name] = {"kernel_ms": time_ms(kernel, what=f"{name} C={c}"),
+                     "plain_ms": time_ms(plain, what=f"{name} plain C={c}"),
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                     "library_ms": None}
+    c59["K2"]["plan"] = {k: v for k, v in mk.sum_plan(c, n, m, d).items()
+                         if k in ("split", "ctas", "pairs_per_cta")}
+    c59["K3"]["plan"] = {k: v for k, v in mk.grad_plan(c, n, m, d).items()
+                         if k in ("ctas", "cluster")}
+    emit(phase=phase, check="K2/K3 timed at the Context step's shape", **c59)
+    del graph, inputs, x, y, wx, wy
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    emit(phase=phase, seconds=time.time() - t_phase, ok=True)
+    return {"launches": launches, "errors": errors, "c59": c59, "loader": loader_rates,
+            "host_to_device": h2d, "seen_fed": fed}
+
+
 def to_f64(trainer):
     """The trainer's model in f64: parameters, statistics and compute."""
     trainer.model.double()
@@ -2945,6 +3300,7 @@ def main() -> int:
     del images
     gc.collect()
     torch.cuda.empty_cache()
+    data = phase_data()
     phase_reference()
     phase_zs3_reference()
     phase_graph_reference()
@@ -2952,13 +3308,14 @@ def main() -> int:
     phase_serve_reference()
     phase_seen_reference()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    b4 = timings[(4, "float32")]
+    b4 = timings[(4, 21, "float32")]
+    data_launches = lambda k: {path: n[k] for path, n in data["launches"].items()}
     k1_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "host_ms")
     k4 = tail_timings[(SERVE_BATCH, 129, "bfloat16")]
     k4_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
     main_err, main_t = mmd_errors["main path"], mmd_timings[128]
 
-    def mmd_row(name, key, source_line, err):
+    def mmd_row(name, key, source_line, err, c59_err):
         t = main_t[key]
         return {
             "name": name,
@@ -2968,6 +3325,7 @@ def main() -> int:
             "launches": zs3_launches[key],
             "launches_train_zs5": zs5_launches[key],
             "launches_graph": graph_launches[key],
+            "launches_data": data_launches(key),
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
@@ -2978,6 +3336,8 @@ def main() -> int:
             **{k: v for k, v in t.items() if k not in ("kernel_ms", "plain_ms", "bound_ms",
                                                        "bound_by", "library_ms")},
             "budgets": {b: mmd_timings[b][key] for b in MMD_BUDGETS},
+            "c59": {**data["c59"][key], "shape": data["c59"]["shape"], "max_abs_err": {
+                path: e[c59_err] for path, e in data["errors"].items()}},
         }
 
     print(json.dumps({"kernels": [{
@@ -2990,6 +3350,7 @@ def main() -> int:
         "launches_train_zs5": zs5_launches["K1"],
         "launches_graph": graph_launches["K1"],
         "zs5_pseudo_label": zs5_k1,
+        "launches_data": data_launches("K1"),
         "max_abs_err": b4["max_abs_err"],
         "ms": b4["kernel_ms"],
         "plain_ms": b4["plain_ms"],
@@ -2999,12 +3360,17 @@ def main() -> int:
         "shape": b4["shape"],
         "host_ms": b4["host_ms"],
         **{f: b4[f] for f in ("band_rows", "ctas", "threads", "smem_bytes")},
-        "b16": {f: timings[(16, "float32")][f] for f in k1_fields},
-        "bf16": {f: timings[(4, "bfloat16")][f] for f in k1_fields + ("max_abs_err",)},
-        "b16_bf16": {f: timings[(16, "bfloat16")][f] for f in k1_fields},
+        "b16": {f: timings[(16, 21, "float32")][f] for f in k1_fields},
+        "bf16": {f: timings[(4, 21, "bfloat16")][f] for f in k1_fields + ("max_abs_err",)},
+        "b16_bf16": {f: timings[(16, 21, "bfloat16")][f] for f in k1_fields},
+        "c59": {f"b4_{d}": {f: timings[(4, 59, d)][f] for f in k1_fields + ("max_abs_err",)}
+                for d in ("float32", "bfloat16")},
+        "c59_restricted_b1": {f: timings[("restricted", 59)][f] for f in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")},
     },
-        mmd_row("mmd_kernel_sum", "K2", 54, main_err["k2_max_abs_err"]),
-        mmd_row("mmd_kernel_sum_grad", "K3", 79, main_err["k3_dx_max_abs_err"]),
+        mmd_row("mmd_kernel_sum", "K2", 54, main_err["k2_max_abs_err"], "k2_max_abs_err"),
+        mmd_row("mmd_kernel_sum_grad", "K3", 79, main_err["k3_dx_max_abs_err"],
+                "k3_dx_max_abs_err"),
         {
             "name": "classify_resize",
             "route": "cuda",

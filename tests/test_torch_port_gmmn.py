@@ -314,11 +314,11 @@ def test_train_gmmn_defaults_to_the_gpu():
 
 
 @pytest.mark.parametrize("change", [
-    ("data", "dataset", "pascal"),  # graph_context is ported now
+    ("data", "input_pipeline", "tfdata"),  # the pascal and context readers are ported now
     ("train", "int8_features", True),
-    ("data", "device_preprocess", True),
+    ("model", "backbone", "mobilenet"),  # device_preprocess is ported now
     ("train", "int8_eval", True),     # TTA (eval_scales/eval_flip) is ported now
-    ("data", "dataset", "context"),
+    ("model", "backbone", "drn"),
     ("model", "backbone", "xception"),  # gmmn_resume is ported now
 ])
 def test_trainer_refuses_unported_settings(change):
@@ -366,8 +366,9 @@ def _embedding_files(tmp_path, rng):
 @pytest.mark.parametrize("kind", ["npy", "npz", "pkl", "npy,npz"])
 def test_class_embeddings_match_jax(kind, tmp_path, rng):
     path = _embedding_files(tmp_path, rng)[kind]
-    cfg = Config()
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data, embedding_path=path))
+    cfg = Config()  # synthetic data names its classes class_<i>
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset="synthetic",
+                                               embedding_path=path))
     want = jax_load_class_embeddings(NAMES, path, 300)
     np.testing.assert_array_equal(gmmn.class_embeddings(cfg, 21), want)
     np.testing.assert_allclose(np.linalg.norm(want, axis=1), 1.0, rtol=1e-6)

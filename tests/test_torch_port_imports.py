@@ -32,7 +32,8 @@ names = [m.name for m in pkgutil.walk_packages(zs3_tpu_torch.__path__, "zs3_tpu_
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "zs3_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "zs3_tpu",
+                                    "tensorflow"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -48,7 +49,9 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
                  "models.gmmn", "data.embeddings", "cli", "ops.tail_kernels",
                  "train.predict", "serve", "metrics.tta", "utils.viz", "train.state",
                  "utils.saver", "utils.schedules", "utils.losses", "utils.logging",
-                 "ops.bottleneck", "ops.bottleneck_kernels"):
+                 "ops.bottleneck", "ops.bottleneck_kernels", "data.voc", "data.sbd",
+                 "data.context", "data.fabricate", "data.context_prepare",
+                 "data.embedding_build", "data.loader", "data.transforms"):
         assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

@@ -114,7 +114,7 @@ def test_plan_bands_and_stages(in_size, out_size, align_corners, dtype):
     its rows' taps name; its copy stages make rows 0..k whole once stages
     0..k land, in 16-byte units inside the span's allocation; the labels'
     vector stores fit theirs."""
-    for bsz, c in ((1, 21), (4, 21), (16, 5)):
+    for bsz, c in ((1, 21), (4, 21), (16, 5), (4, 59)):  # 59: Pascal-Context
         shape, size = (bsz, in_size, 7, c), (out_size, 9)
         layout = plan(shape, size, align_corners, dtype)
         rows = layout["rows"]
@@ -157,7 +157,8 @@ def test_plan_fills_the_card_at_the_eval_batches():
 
 @pytest.mark.parametrize(
     "shape,size",
-    [((1, 129, 129, 21), (513, 513)), ((4, 17, 17, 21), (65, 65)), ((2, 9, 11, 7), (33, 45)),
+    [((1, 129, 129, 21), (513, 513)), ((1, 129, 129, 59), (513, 513)),
+     ((4, 17, 17, 21), (65, 65)), ((2, 9, 11, 7), (33, 45)),
      ((2, 33, 33, 5), (9, 9)), ((1, 1, 5, 3), (4, 5)), ((1, 33, 129, 128), (65, 513))],
 )
 def test_kernel_walk_writes_every_label_once(shape, size):

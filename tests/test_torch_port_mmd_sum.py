@@ -32,6 +32,7 @@ from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS
 SIGMAS = DEFAULT_SIGMAS
 MMD_SHAPES = [  # chip_smoke.py's phase_mmd, and the widest D the kernel takes
     (21, 128, 128, 256),
+    (59, 128, 128, 256),  # a Pascal-Context step
     (21, 512, 512, 256),
     (21, 2048, 2048, 256),
     (3, 50, 70, 16),

@@ -180,8 +180,6 @@ def test_train_step_refuses_what_is_not_ported():
     loss = losses.build_seg_loss("ce")
     with pytest.raises(NotImplementedError, match="qat"):
         make_train_step(loss, qat=True)
-    with pytest.raises(NotImplementedError, match="device_preprocess"):
-        make_train_step(loss, device_preprocess=True)
     with pytest.raises(ValueError):
         make_train_step(loss, grad_accum=0)
     model = DeepLab(backbone="resnet50", num_classes=NUM_CLASSES, dropout=False, layers=LAYERS)

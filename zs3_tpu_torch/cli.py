@@ -6,8 +6,11 @@
     python -m zs3_tpu_torch.cli evaluate-gmmn --unseen-split 2 --resume CKPT --gmmn-resume CKPT
     python -m zs3_tpu_torch.cli train-zs5 --dataset synthetic --unseen-split 2 --resume CKPT
     python -m zs3_tpu_torch.cli train-gmmn --graph-context --unseen-split 2 --resume CKPT
+    python -m zs3_tpu_torch.cli train-seen --dataset pascal --use-sbd --data-root /data
     python -m zs3_tpu_torch.cli infer img1.png img2.jpg --output preds --fused-tail
     python -m zs3_tpu_torch.cli serve --port 8500 --serve-batch 8 --fused-tail
+    python -m zs3_tpu_torch.cli prepare-context trainval_merged.json --data-root /data
+    python -m zs3_tpu_torch.cli build-embeddings GoogleNews.bin --dataset context --output e.npy
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
@@ -29,6 +32,11 @@ from zs3_tpu_torch.core.config import Config, context_unseen_split, voc_unseen_s
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--config", type=str, default=None, help="JSON config file")
     p.add_argument("--dataset", choices=["pascal", "context", "synthetic"])
+    p.add_argument("--data-root", type=str,
+                   help="directory holding VOC2012/ (and benchmark_RELEASE/ for SBD) "
+                        "or VOC2010/ for Pascal-Context")
+    p.add_argument("--use-sbd", action="store_true", default=None,
+                   help="train on VOC2012 + SBD (pascal)")
     p.add_argument("--backbone", choices=["resnet101", "resnet50"])
     p.add_argument("--out-stride", type=int, choices=[8, 16])
     p.add_argument("--base-size", type=int)
@@ -92,8 +100,9 @@ def _add_gmmn(p: argparse.ArgumentParser):
     p.add_argument("--pixels-per-class", type=int,
                    help="per-class pixel budget of the generator step")
     p.add_argument("--embedding-path", type=str,
-                   help="class embeddings (.npy/.pkl/.npz); default: the "
-                        "synthetic classes' own")
+                   help="class embeddings (.npy/.pkl/.npz, e.g. from build-embeddings); "
+                        "default: seeded per-name vectors (synthetic data: its "
+                        "classes' own)")
     p.add_argument("--graph-context", action="store_true", default=None,
                    help="graph-context generator: condition on the classes of "
                         "neighbouring regions (GraphContextGMMN)")
@@ -121,6 +130,26 @@ def _add_serve(p: argparse.ArgumentParser):
                    help="micro-batch up to N concurrent requests onto one forward")
     p.add_argument("--artifact", type=str, default=None,
                    help="serve an exported artifact (not ported yet; refused)")
+
+
+def _add_prepare_context(p: argparse.ArgumentParser):
+    p.add_argument("json", help="detail-API trainval_merged.json")
+    p.add_argument("--overwrite", action="store_true",
+                   help="regenerate label PNGs that already exist")
+
+
+def _add_build_embeddings(p: argparse.ArgumentParser):
+    p.add_argument("vectors", nargs="+",
+                   help="word-vector file(s): word2vec .bin, word2vec/fasttext/GloVe "
+                        "text, or existing .npy/.npz/.pkl registries; several files "
+                        "concatenate feature-wise (fastnvec)")
+    p.add_argument("--output", type=str, required=True,
+                   help="registry .npy to write (rows ordered by the dataset's class "
+                        "list; pass it to the trainers with --embedding-path)")
+    p.add_argument("--no-normalize", action="store_true",
+                   help="keep raw vector norms (default: unit rows)")
+    p.add_argument("--alias", action="append", default=[], metavar="NAME=TOKENS",
+                   help="extra class-name alias, e.g. 'tvmonitor=television'; repeatable")
 
 
 def build_config(args: argparse.Namespace) -> Config:
@@ -164,6 +193,8 @@ def build_config(args: argparse.Namespace) -> Config:
         data=upd(
             cfg.data,
             dataset=args.dataset,
+            root=args.data_root,
+            use_sbd=args.use_sbd,
             base_size=args.base_size,
             crop_size=args.crop_size,
             batch_size=args.batch_size,
@@ -236,6 +267,12 @@ def make_parser() -> argparse.ArgumentParser:
     _add_common(serve)
     _add_int8(serve)
     _add_serve(serve)
+    prepare = sub.add_parser("prepare-context")
+    _add_common(prepare)
+    _add_prepare_context(prepare)
+    build = sub.add_parser("build-embeddings")
+    _add_common(build)
+    _add_build_embeddings(build)
     return parser
 
 
@@ -264,7 +301,9 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     """Run one command without printing: (its result, the object it ran:
     the SeenTrainer of `train-seen` and `evaluate`, the GMMNTrainer of
     `train-gmmn` and `evaluate-gmmn`, the ZS5Trainer of `train-zs5`, the
-    Predictor of `infer`, the InferenceServer of `serve` once it stops).
+    Predictor of `infer`, the InferenceServer of `serve` once it stops;
+    None for `prepare-context` and `build-embeddings`, which run on the
+    host alone).
     `train-zs5` pseudo-labels the train set (the count goes to stderr),
     then trains."""
     args = make_parser().parse_args(argv)
@@ -318,6 +357,24 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
         finally:
             server.httpd.server_close()
         return {"served": f"http://{args.host}:{server.port}"}, server
+    if args.command == "prepare-context":
+        from zs3_tpu_torch.data.context_prepare import prepare_context
+
+        return prepare_context(args.json, cfg.data.root, overwrite=args.overwrite), None
+    if args.command == "build-embeddings":
+        from zs3_tpu_torch.data.classes import CONTEXT_CLASSES, VOC_CLASSES
+        from zs3_tpu_torch.data.embedding_build import build_embedding_registry
+
+        names = CONTEXT_CLASSES if cfg.data.dataset == "context" else VOC_CLASSES
+        aliases = {}
+        for spec in args.alias:
+            key, _, val = spec.partition("=")
+            if not val:
+                raise SystemExit(f"--alias expects NAME=TOKENS, got {spec!r}")
+            aliases[key.lower()] = val
+        return build_embedding_registry(names, args.vectors, args.output,
+                                        normalize=not args.no_normalize,
+                                        aliases=aliases), None
     raise AssertionError(args.command)  # pragma: no cover
 
 

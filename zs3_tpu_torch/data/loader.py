@@ -1,144 +1,244 @@
-"""Batches: dataset -> transformed, collated numpy batches
-(port of zs3_tpu.data.loader.make_data_loader, synthetic data only).
+"""Batches: dataset -> transformed, collated batches (port of
+zs3_tpu.data.loader).
 
-The val loader walks the dataset in order and yields the last, ragged
-batch too.  The train loader shuffles with an order that is a function
-of (seed, epoch) alone, drops the last ragged batch, and augments each
-sample with its own rng seeded by (seed, epoch, index), so its batches
-are zs3_tpu's, byte for byte.  Images are normalized f32 NHWC, labels
-int32.  The VOC/Context readers come with the training slice.
+`make_data_loader(cfg)` gives zs3_tpu's (train, val, num_classes) for
+`pascal` (VOC2012, with `use_sbd` the VOC+SBD union less the val names),
+`context` (Pascal-Context, 59 classes) and `synthetic`.  The train pool
+drops every image that shows an unseen class, unless `weak_label_dir`
+is set (ZS5 keeps them: their pseudo-labels replace the ground truth).
+
+`DataLoader` is zs3_tpu's: a producer thread maps the per-sample
+transform over a batch's indices on `num_workers` threads (PIL releases
+the GIL) and puts the collated batch into a queue of `prefetch`
+batches, so host decode overlaps device compute.  The epoch order is a
+function of (seed, epoch) and each sample's augmentation of (seed,
+epoch, index), so its batches are zs3_tpu's byte for byte.  An error in
+a worker reaches the consumer as RuntimeError; an abandoned iterator
+stops and joins its producer and pool.  With `pin_memory` (the trainers
+set it on a CUDA device) a batch is torch tensors in pinned host memory,
+so its copies to the card are asynchronous; else numpy arrays.  Images
+are normalized f32 NHWC, or uint8 with `device_preprocess`; labels
+int32.  `input_pipeline="tfdata"` (zs3_tpu's tf.data stream) is refused.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from zs3_tpu_torch.core.config import DataConfig
 from zs3_tpu_torch.data import transforms as T
 
-
-def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    return {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+Batch = Dict[str, Union[np.ndarray, torch.Tensor]]
 
 
-class EvalLoader:
-    """In-order batch iterator over `dataset` with a per-sample transform."""
+def collate(samples: Sequence[Dict[str, np.ndarray]], pin_memory: bool = False) -> Batch:
+    """Stack the samples' arrays key by key: numpy arrays, or torch tensors
+    in pinned host memory (stacked in place, no second copy)."""
+    out: Batch = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        if pin_memory:
+            dtype = torch.from_numpy(vals[0][:0]).dtype
+            buf = torch.empty((len(vals), *vals[0].shape), dtype=dtype, pin_memory=True)
+            np.stack(vals, out=buf.numpy())
+            out[key] = buf
+        else:
+            out[key] = np.stack(vals)
+    return out
 
-    def __init__(self, dataset, batch_size: int, transform: Callable):
+
+class DataLoader:
+    """Deterministic shuffling, threaded transform, prefetching iterator."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        transform: Callable,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        seed: int = 0,
+        num_workers: int = 4,
+        prefetch: int = 2,
+        transform_needs_rng: bool = True,
+        pin_memory: bool = False,
+    ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.transform = transform
-
-    def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
-
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n = len(self.dataset)
-        for start in range(0, n, self.batch_size):
-            samples = []
-            for idx in range(start, min(start + self.batch_size, n)):
-                sample = self.dataset[idx]
-                samples.append(
-                    self.transform({"image": sample["image"], "label": sample["label"]})
-                )
-            yield collate(samples)
-
-
-class TrainLoader:
-    """Shuffled batches of `dataset` with a seeded per-sample transform;
-    `set_epoch` picks the epoch's order.  Samples of a batch are
-    transformed on `num_workers` threads (PIL releases the GIL)."""
-
-    def __init__(self, dataset, batch_size: int, transform: Callable, seed: int = 0,
-                 num_workers: int = 4):
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.transform = transform
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.transform_needs_rng = transform_needs_rng
+        self.pin_memory = pin_memory
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
-        np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
+        if self.shuffle:
+            np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
         return idx
 
     def _load_one(self, idx: int) -> Dict[str, np.ndarray]:
         sample = self.dataset[int(idx)]
-        rng = np.random.default_rng((self.seed, self.epoch, int(idx)))
-        return self.transform({"image": sample["image"], "label": sample["label"]}, rng)
+        sample = {"image": sample["image"], "label": sample["label"]}
+        if self.transform_needs_rng:
+            return self.transform(sample, np.random.default_rng((self.seed, self.epoch, int(idx))))
+        return self.transform(sample)
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+    def __iter__(self) -> Iterator[Batch]:
         order = self._order()
-        with ThreadPoolExecutor(self.num_workers) as pool:
-            for b in range(len(self)):
-                chunk = order[b * self.batch_size : (b + 1) * self.batch_size]
-                yield collate(list(pool.map(self._load_one, chunk)))
+        n_batches = len(self)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Put unless the consumer went away; False once it has."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            # Always ends the queue (with `done` or the error) and never
+            # blocks on a consumer that went away: a dataset or transform
+            # error must surface in the training loop, not hang it, and an
+            # abandoned iterator must not leak this thread and its pool.
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for b in range(n_batches):
+                        chunk = order[b * self.batch_size : (b + 1) * self.batch_size]
+                        samples = list(pool.map(self._load_one, chunk))
+                        if stop.is_set() or not put(collate(samples, self.pin_memory)):
+                            return
+            except BaseException as e:  # handed to the consumer, which raises
+                put(e)
+            else:
+                put(done)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise RuntimeError("DataLoader worker failed while loading a batch") from item
+                yield item
+        finally:
+            # On exhaustion and on close or collection of the generator:
+            # unblock a pending put, then reap the thread.
+            stop.set()
+            while thread.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                thread.join(timeout=0.05)
 
 
-def _require_synthetic(cfg: DataConfig):
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r} is not ported yet; use 'synthetic'"
-        )
-
-
-def make_train_loader(cfg: DataConfig) -> Tuple[TrainLoader, int]:
-    """(train_loader, num_classes).  As in the zero-shot protocol, the
-    train pool never shows an unseen class (the reference filters images
-    that contain one)."""
-    _require_synthetic(cfg)
-    from zs3_tpu_torch.data.synthetic import SyntheticSegmentation
-
-    n_cls = cfg.synthetic_classes
+def _datasets(cfg: DataConfig, train: bool):
+    """(dataset, num_classes) of cfg.dataset's train or val split."""
     unseen = cfg.unseen_classes
-    classes = None
-    if unseen and cfg.weak_label_dir is None:
-        classes = tuple(c for c in range(1, n_cls) if c not in unseen)
-    train_ds = SyntheticSegmentation(
-        cfg.synthetic_items, (cfg.crop_size, cfg.crop_size), num_classes=n_cls,
-        seed=1, classes=classes, embedding_dim=cfg.synthetic_embed_dim,
-        tint_weight=cfg.synthetic_tint_weight,
-        context_tint=cfg.synthetic_context_tint,
-    )
-    loader = TrainLoader(
-        train_ds, cfg.batch_size,
-        lambda s, rng: T.train_transform(s, rng, cfg.base_size, cfg.crop_size,
-                                         cfg.ignore_index),
-        seed=cfg.shuffle_seed, num_workers=cfg.num_workers,
-    )
-    return loader, train_ds.NUM_CLASSES
+    # ZS5's weak-label mode keeps the unseen-containing train images:
+    # their pseudo-labels are the point of self-training.
+    filter_unseen = cfg.weak_label_dir is None
+    if cfg.dataset == "pascal":
+        from zs3_tpu_torch.data.voc import VOCSegmentation
+
+        val = VOCSegmentation(cfg.root, "val", unseen, filter_unseen=False)
+        if not train:
+            return val, VOCSegmentation.NUM_CLASSES
+        ds = VOCSegmentation(cfg.root, "train", unseen, filter_unseen=filter_unseen,
+                             weak_label_dir=cfg.weak_label_dir)
+        if cfg.use_sbd:
+            from zs3_tpu_torch.data.sbd import CombineDBs, SBDSegmentation
+
+            ds = CombineDBs([ds, SBDSegmentation(cfg.root, "train", unseen)],
+                            exclude_names=val.names)
+        return ds, VOCSegmentation.NUM_CLASSES
+    if cfg.dataset == "context":
+        from zs3_tpu_torch.data.context import ContextSegmentation
+
+        if not train:
+            return (ContextSegmentation(cfg.root, "val", unseen, filter_unseen=False),
+                    ContextSegmentation.NUM_CLASSES)
+        return (ContextSegmentation(cfg.root, "train", unseen, filter_unseen=filter_unseen,
+                                    weak_label_dir=cfg.weak_label_dir),
+                ContextSegmentation.NUM_CLASSES)
+    if cfg.dataset == "synthetic":
+        from zs3_tpu_torch.data.synthetic import SyntheticSegmentation
+
+        n_cls = cfg.synthetic_classes
+        classes = None
+        if train and unseen and filter_unseen:
+            classes = tuple(c for c in range(1, n_cls) if c not in unseen)
+        ds = SyntheticSegmentation(
+            cfg.synthetic_items if train else max(16, cfg.synthetic_items // 4),
+            (cfg.crop_size, cfg.crop_size), num_classes=n_cls, seed=1 if train else 2,
+            classes=classes, embedding_dim=cfg.synthetic_embed_dim,
+            tint_weight=cfg.synthetic_tint_weight, context_tint=cfg.synthetic_context_tint,
+        )
+        return ds, ds.NUM_CLASSES
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
-def make_data_loader(cfg: DataConfig) -> Tuple[TrainLoader, EvalLoader, int]:
+def make_train_loader(cfg: DataConfig, pin_memory: bool = False) -> Tuple[DataLoader, int]:
+    """(train_loader, num_classes): shuffled, the last ragged batch
+    dropped, augmented by train_transform (train_transform_spatial with
+    device_preprocess)."""
+    if cfg.input_pipeline == "tfdata":
+        raise NotImplementedError(
+            "data.input_pipeline='tfdata' (zs3_tpu's tf.data stream) is not ported: its "
+            "augmentation draws from TensorFlow's stateless RNG, which the port cannot "
+            "reproduce; use input_pipeline='python' (see ROADMAP Queue 3, stated divergences)"
+        )
+    dataset, num_classes = _datasets(cfg, train=True)
+    host_tf = T.train_transform_spatial if cfg.device_preprocess else T.train_transform
+    loader = DataLoader(
+        dataset, cfg.batch_size,
+        lambda s, rng: host_tf(s, rng, cfg.base_size, cfg.crop_size, cfg.ignore_index),
+        seed=cfg.shuffle_seed, num_workers=cfg.num_workers, pin_memory=pin_memory,
+    )
+    return loader, num_classes
+
+
+def make_val_loader(cfg: DataConfig, pin_memory: bool = False) -> Tuple[DataLoader, int]:
+    """(val_loader, num_classes): in order, the last ragged batch kept,
+    eval_transform (always normalized on the host)."""
+    dataset, num_classes = _datasets(cfg, train=False)
+    loader = DataLoader(
+        dataset, cfg.eval_batch_size, lambda s: T.eval_transform(s, cfg.crop_size),
+        shuffle=False, drop_last=False, seed=cfg.shuffle_seed, num_workers=cfg.num_workers,
+        transform_needs_rng=False, pin_memory=pin_memory,
+    )
+    return loader, num_classes
+
+
+def make_data_loader(
+    cfg: DataConfig, pin_memory: bool = False
+) -> Tuple[DataLoader, DataLoader, int]:
     """(train_loader, val_loader, num_classes), zs3_tpu's factory contract."""
-    train, num_classes = make_train_loader(cfg)
-    val, _ = make_val_loader(cfg)
+    train, num_classes = make_train_loader(cfg, pin_memory)
+    val, _ = make_val_loader(cfg, pin_memory)
     return train, val, num_classes
-
-
-def make_val_loader(cfg: DataConfig) -> Tuple[EvalLoader, int]:
-    """(val_loader, num_classes) for cfg.dataset."""
-    _require_synthetic(cfg)
-    from zs3_tpu_torch.data.synthetic import SyntheticSegmentation
-
-    size = (cfg.crop_size, cfg.crop_size)
-    val_ds = SyntheticSegmentation(
-        max(16, cfg.synthetic_items // 4), size, num_classes=cfg.synthetic_classes,
-        seed=2, embedding_dim=cfg.synthetic_embed_dim,
-        tint_weight=cfg.synthetic_tint_weight,
-        context_tint=cfg.synthetic_context_tint,
-    )
-    loader = EvalLoader(
-        val_ds, cfg.eval_batch_size, lambda s: T.eval_transform(s, cfg.crop_size)
-    )
-    return loader, val_ds.NUM_CLASSES

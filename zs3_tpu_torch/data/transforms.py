@@ -6,8 +6,14 @@ HFlip -> RandomScaleCrop -> GaussianBlur -> Normalize, val is
 FixScaleCrop -> Normalize (ImageNet mean/std).  Random transforms take an
 explicit np.random.Generator, so a sample's augmentation is a function of
 its seed, as in zs3_tpu.  The inference geometry (`letterbox_image`,
-`unletterbox_pred`) is copied too, and `batched_normalize_device`
-normalizes uint8 batches where they lie, on the card when serving.
+`unletterbox_pred`) is copied too.
+
+Device-side preprocessing (`data.device_preprocess`) splits the train
+composition: `train_transform_spatial` does the shape-changing half on
+the host and ships uint8 crops; the step normalizes them where they lie
+(`batched_normalize_device`, also the server's) and flips each sample
+where a mask says (`batched_flip_device`), the mask drawn from a torch
+generator the step seeds (`batched_random_flip_device`).
 """
 
 from __future__ import annotations
@@ -137,6 +143,25 @@ def train_transform(
     return normalize(sample)
 
 
+def train_transform_spatial(
+    sample: Sample,
+    rng: np.random.Generator,
+    base_size: int = 513,
+    crop_size: int = 513,
+    fill: int = 255,
+) -> Dict[str, np.ndarray]:
+    """Host half of the device-preprocess split: the shape-changing ops
+    only (scale/crop/blur), image uint8 (4x less host->device traffic),
+    labels int32; normalize and flip run in the train step (the flip
+    commutes with the other augmentations in distribution)."""
+    sample = random_scale_crop(sample, rng, base_size, crop_size, fill)
+    sample = random_gaussian_blur(sample, rng)
+    return {
+        "image": sample["image"].astype(np.uint8),
+        "label": sample["label"].astype(np.int32),
+    }
+
+
 def letterbox_image(image: np.ndarray, size: int) -> Tuple[np.ndarray, Tuple[int, int]]:
     """Aspect-preserving resize onto a (size, size) canvas.
 
@@ -187,3 +212,22 @@ def batched_normalize_device(images: torch.Tensor) -> torch.Tensor:
     img = images.to(torch.float32) / 255.0
     mean, std = _mean_std(img.device)
     return (img - mean) / std
+
+
+def batched_flip_device(
+    images: torch.Tensor, labels: torch.Tensor, flip: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mirror sample i of images (NHWC) and labels (NHW) horizontally
+    where flip[i] (bool (N,)) is set, where they lie."""
+    images = torch.where(flip[:, None, None, None], images.flip(2), images)
+    labels = torch.where(flip[:, None, None], labels.flip(2), labels)
+    return images, labels
+
+
+def batched_random_flip_device(
+    images: torch.Tensor, labels: torch.Tensor, generator: torch.Generator
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batched_flip_device with each sample flipped with probability 1/2,
+    the mask drawn from `generator` (on the images' device)."""
+    flip = torch.rand(images.shape[0], generator=generator, device=images.device) < 0.5
+    return batched_flip_device(images, labels, flip)

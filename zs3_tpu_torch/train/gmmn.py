@@ -50,7 +50,7 @@ from zs3_tpu_torch.ops.sampling import (
     sample_class_pixels, top_k_lower_first,
 )
 from zs3_tpu_torch.train.seen import (
-    build_eval_model, device_batch, select_eval_step, step_generator,
+    build_eval_model, device_batch, preprocess_on_device, select_eval_step, step_generator,
 )
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.saver import Saver
@@ -187,6 +187,7 @@ class ZS3Step:
         self.self_training = cfg.gmmn.self_training
         self.graph_context = cfg.gmmn.graph_context
         self.max_neighbors = cfg.gmmn.max_graph_neighbors
+        self.device_preprocess = cfg.data.device_preprocess
         self.device = embeddings.device
         self.mmd_fn = select_mmd(cfg.gmmn.mmd_backend, self.device)
         self.cls = {k: v.detach().clone().requires_grad_(True) for k, v in cls_params.items()}
@@ -277,7 +278,14 @@ class ZS3Step:
 
     def body(self, batch: Dict[str, torch.Tensor], draws: Optional[Draws] = None,
              step: Optional[int] = None):
-        """The step on `batch` with the given draws, or with step `step`'s."""
+        """The step on `batch` with the given draws, or with step `step`'s.
+        With data.device_preprocess the batch's images are uint8, normalized
+        and flipped here by step `step`'s flip mask (a stream of its own:
+        the other draws are those of the step without it)."""
+        if self.device_preprocess:
+            if step is None:
+                raise ValueError("device_preprocess draws step `step`'s flips: pass step")
+            batch = preprocess_on_device(batch, self.seed, step)
         feats, labels = self.features(batch)
         u, noise1, noise2 = draws if draws is not None else self.draw(labels.shape[0], step)
         context = None
@@ -312,7 +320,6 @@ def refuse_unported(cfg: Config):
     """Raise for the settings whose code paths are not ported yet."""
     unported = {
         "train.int8_features": cfg.train.int8_features,
-        "data.device_preprocess": cfg.data.device_preprocess,
         "train.int8_eval": cfg.train.int8_eval,
     }
     bad = [name for name, on in unported.items() if on]
@@ -321,18 +328,25 @@ def refuse_unported(cfg: Config):
 
 
 def class_embeddings(cfg: Config, num_classes: int) -> np.ndarray:
-    """(num_classes, embed_dim) embeddings of the synthetic classes (the
-    only dataset the port reads yet), or of `class_<i>` from the file at
-    cfg.data.embedding_path."""
-    if cfg.data.embedding_path is None:
+    """(num_classes, embed_dim) class embeddings, as zs3_tpu's GMMNTrainer
+    loads them: for `pascal` and `context` the rows of VOC_CLASSES or
+    CONTEXT_CLASSES by name, from the file at cfg.data.embedding_path or
+    the per-name fallback; for `synthetic` the synthetic classes' own, or
+    `class_<i>` from the file."""
+    from zs3_tpu_torch.data.embeddings import load_class_embeddings
+
+    if cfg.data.dataset != "synthetic":
+        from zs3_tpu_torch.data.classes import CONTEXT_CLASSES, VOC_CLASSES
+
+        names = CONTEXT_CLASSES if cfg.data.dataset == "context" else VOC_CLASSES
+        emb = load_class_embeddings(names, cfg.data.embedding_path, cfg.gmmn.embed_dim)
+    elif cfg.data.embedding_path is None:
         # The synthetic classes' appearance is linear in these embeddings,
         # so zero-shot transfer is well posed.
         from zs3_tpu_torch.data.synthetic import synthetic_class_embeddings
 
         emb = synthetic_class_embeddings(num_classes, cfg.gmmn.embed_dim)
     else:
-        from zs3_tpu_torch.data.embeddings import load_class_embeddings
-
         emb = load_class_embeddings(
             [f"class_{i}" for i in range(num_classes)],
             cfg.data.embedding_path,
@@ -341,7 +355,8 @@ def class_embeddings(cfg: Config, num_classes: int) -> np.ndarray:
     if emb.shape[1] != cfg.gmmn.embed_dim:
         raise ValueError(
             f"embedding file {cfg.data.embedding_path!r} has dim {emb.shape[1]}, "
-            f"but gmmn.embed_dim={cfg.gmmn.embed_dim}"
+            f"but gmmn.embed_dim={cfg.gmmn.embed_dim} (the generator was sized for "
+            "the latter; set gmmn.embed_dim to match the file)"
         )
     return emb
 
@@ -359,7 +374,8 @@ class GMMNTrainer:
                  saver: Optional[Saver] = None):
         device = resolve_device(device)
         refuse_unported(cfg)
-        self.train_loader, self.val_loader, num_classes = make_data_loader(cfg.data)
+        self.train_loader, self.val_loader, num_classes = make_data_loader(
+            cfg.data, pin_memory=device.type == "cuda")
         if cfg.model.num_classes != num_classes:
             cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=num_classes))
         self.cfg = cfg

@@ -36,6 +36,7 @@ import torch
 from zs3_tpu_torch.core.config import Config, TrainConfig
 from zs3_tpu_torch.core.device import resolve_device
 from zs3_tpu_torch.data.loader import make_data_loader
+from zs3_tpu_torch.data.transforms import batched_normalize_device, batched_random_flip_device
 from zs3_tpu_torch.metrics.evaluator import Evaluator
 from zs3_tpu_torch.metrics.tta import make_tta_eval_step
 from zs3_tpu_torch.models.deeplab import DeepLab, build_deeplab, init_deeplab
@@ -51,12 +52,32 @@ from zs3_tpu_torch.utils.saver import Saver
 Batch = Dict[str, torch.Tensor]
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+FLIP_STREAM = 1  # step_generator's stream of the device_preprocess flip masks
+
+
+def step_generator(seed: int, step: int, device: torch.device,
+                   stream: int = 0) -> torch.Generator:
     """The generator of step `step`'s random draws (the seen step's
     dropout masks, the ZS3 step's scores and noise): a function of
-    (seed, step) alone, as zs3_tpu's `fold_in(rng, step)`."""
-    state = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    (seed, step) alone, as zs3_tpu's `fold_in(rng, step)`.  Another
+    `stream` (FLIP_STREAM: the flips of device_preprocess) is a stream of
+    its own, so turning it on shifts no draw of stream 0."""
+    spawn_key = (stream,) if stream else ()
+    state = np.random.SeedSequence((seed, step), spawn_key=spawn_key).generate_state(
+        1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def preprocess_on_device(batch: Batch, seed: int, step: int) -> Batch:
+    """A device_preprocess batch (uint8 NHWC images, int32 labels) made
+    ready for the step where it lies: images normalized, then each sample
+    mirrored with probability 1/2 from step_generator(seed, step,
+    FLIP_STREAM) (zs3_tpu's batched_normalize_device and
+    batched_random_flip_device)."""
+    images = batched_normalize_device(batch["image"])
+    gen = step_generator(seed, step, images.device, FLIP_STREAM)
+    images, labels = batched_random_flip_device(images, batch["label"], gen)
+    return {**batch, "image": images, "label": labels}
 
 
 def make_train_step(
@@ -69,7 +90,9 @@ def make_train_step(
 ) -> Callable[[DeepLab, SegOptimizer, Batch], Dict[str, torch.Tensor]]:
     """train_step(model, optimizer, batch) -> {"loss": mean loss}: one
     optimizer update of `model` on the batch (the effective batch when
-    grad_accum > 1).  The gradients stay in the parameters' .grad."""
+    grad_accum > 1).  The gradients stay in the parameters' .grad.  With
+    `device_preprocess` the batch's images are uint8, normalized and
+    flipped in the step (preprocess_on_device)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if loss_at not in ("full", "feature"):
@@ -77,9 +100,6 @@ def make_train_step(
     if qat:
         raise NotImplementedError("train.qat (quantization-aware training) is not ported "
                                   "yet: see ROADMAP Queue 1, Quantization")
-    if device_preprocess:
-        raise NotImplementedError("data.device_preprocess (device-side preprocessing) is not "
-                                  "ported yet: see ROADMAP Queue 1, Data")
 
     def micro_loss(model: DeepLab, images: torch.Tensor, labels: torch.Tensor):
         if loss_at == "feature":
@@ -89,6 +109,8 @@ def make_train_step(
         return loss_fn(model(images), labels)
 
     def train_step(model: DeepLab, optimizer: SegOptimizer, batch: Batch):
+        if device_preprocess:
+            batch = preprocess_on_device(batch, seed, optimizer.step)
         images, labels = batch["image"], batch["label"]
         if images.shape[0] % grad_accum:
             raise ValueError(f"batch size {images.shape[0]} is not divisible by grad_accum "
@@ -142,11 +164,14 @@ def select_eval_step(
     return make_eval_step(num_classes, ignore_index)
 
 
-def device_batch(batch: Dict[str, np.ndarray], device: torch.device) -> Batch:
-    """Host numpy batch -> tensors on `device` (images f32 NHWC, labels int32)."""
+def device_batch(batch: Mapping[str, Any], device: torch.device) -> Batch:
+    """A host batch (numpy arrays, or the loader's pinned tensors) ->
+    tensors on `device` in their own dtypes (images f32, or uint8 with
+    device_preprocess; labels int32).  From pinned memory the copies are
+    asynchronous."""
     return {
-        "image": torch.from_numpy(batch["image"]).to(device, non_blocking=True),
-        "label": torch.from_numpy(batch["label"]).to(device, non_blocking=True),
+        "image": torch.as_tensor(batch["image"]).to(device, non_blocking=True),
+        "label": torch.as_tensor(batch["label"]).to(device, non_blocking=True),
     }
 
 
@@ -201,7 +226,8 @@ class SeenTrainer:
                  saver: Optional[Saver] = None):
         device = resolve_device(device)
         select_eval_step(1, cfg.data.ignore_index, cfg.train)  # refuses before any work
-        self.train_loader, self.val_loader, num_classes = make_data_loader(cfg.data)
+        self.train_loader, self.val_loader, num_classes = make_data_loader(
+            cfg.data, pin_memory=device.type == "cuda")
         if cfg.model.num_classes != num_classes:
             cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=num_classes))
         self.cfg = cfg
@@ -221,7 +247,7 @@ class SeenTrainer:
                 cache_path=cache).to(device)
         self.loss_fn = build_seg_loss(cfg.optim.loss_type, cfg.data.ignore_index,
                                       class_weights)
-        self.train_step = make_train_step(  # refuses qat and device_preprocess
+        self.train_step = make_train_step(  # refuses qat
             self.loss_fn, cfg.optim.loss_at, cfg.train.grad_accum, cfg.train.seed,
             cfg.data.device_preprocess, cfg.train.qat,
         )
@@ -294,7 +320,7 @@ class SeenTrainer:
         from zs3_tpu_torch.utils.viz import decode_segmap
 
         with torch.inference_mode():
-            images = torch.from_numpy(batch["image"][:1]).to(self.device)
+            images = torch.as_tensor(batch["image"][:1]).to(self.device)
             pred = self.model(images).argmax(-1)[0].cpu().numpy()
         img = np.asarray(batch["image"][0])
         img = np.clip((img * IMAGENET_STD + IMAGENET_MEAN) * 255, 0, 255).astype(np.uint8)

@@ -185,7 +185,7 @@ class ZS5Trainer(GMMNTrainer):
         )
         super().__init__(cfg, device=device, saver=saver)
         self.pseudo_dir = pseudo_dir
-        if cfg.data.dataset == "synthetic":
+        if cfg.data.dataset == "synthetic":  # VOC and Context readers read weak labels
             self.train_loader.dataset = WeakLabelDataset(self.train_loader.dataset, pseudo_dir)
 
     def pseudo_label(self) -> int:
