@@ -56,6 +56,16 @@ just after:
     restricted logits) and K2/K3 at the Context step's shape against
     their plain versions; the loader's images/s, one batch's copy to the
     card, and the seen step fed by the loader beside bypassing it.
+  * int8 (zs3_tpu_torch/quant.py): `evaluate --int8` (calibration on 2
+    val batches, 112 int8 convs a forward, K1 once per eval batch); the
+    s8 x s8 -> s32 route (im2col + torch._int_mm) held bit-equal to its
+    plain version (a float64 conv of the int8 values) for every conv form
+    on the inputs that path gives; absmax and 99.99th-percentile
+    calibration; int8 against bf16 eval in turns; `serve --int8
+    --calib-images --int8-percentile 99.99` under the served load (K4
+    once per batched forward); `train-seen --qat` (3 steps);
+    `train-gmmn --int8-features` (2 steps, K2/K3, an int8 validation);
+    and the route's time on three shapes against cuDNN's bf16 conv.
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
@@ -129,6 +139,27 @@ SEEN_ARGS = [
     "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(SEEN_STEPS), *CKPT_ARGS,
 ]
 MMD_BUDGETS = (128, 512, 2048)
+# The int8 phase: R101's quantized convs (33 bottlenecks x 3, 4 downsamples,
+# 6 of the ASPP, 3 of the decoder; the stem and the classifier stay float),
+# zs3_tpu.quant's count on the same architecture
+# (tests/test_torch_port_quant.py::test_r101_quantized_conv_count).
+INT8_CONVS = 112
+INT8_ARGS = [*SLICE_ARGS, "--int8"]
+QAT_STEPS = 3
+QAT_ARGS = [
+    "train-seen", *FULL_WIDTH, "--batch-size", "8", "--unseen-split", "2", "--epochs", "1",
+    "--steps-per-epoch", str(QAT_STEPS), "--no-val", "--qat",
+    "--checkpoint-dir", CKPT_DIR, "--checkname", "chip-smoke-qat",
+]
+INT8_ZS3_STEPS = 2
+INT8_ZS3_ARGS = [*ZS3_ARGS[:ZS3_ARGS.index("--steps-per-epoch")], "--steps-per-epoch",
+                 str(INT8_ZS3_STEPS), "--seed", "0", "--device", "cuda",
+                 "--checkpoint-dir", CKPT_DIR, "--checkname", "chip-smoke-int8",
+                 "--int8-features"]
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+# Numbers of the bf16 loops, kept by their phases for the int8 phase to
+# set beside its own (same run, same card).
+MEASURED = {}
 
 
 def emit(**fields):
@@ -280,10 +311,13 @@ def reset_counts():
     from zs3_tpu_torch.ops import bottleneck_kernels, eval_kernels, tail_kernels
     from zs3_tpu_torch.ops import mmd_kernels as mk
 
+    from zs3_tpu_torch import quant
+
     eval_kernels.upsample_argmax.launches = 0
     mk.kernel_sum.launches = mk.kernel_sum_grad.launches = 0
     tail_kernels.classify_resize.launches = 0
     bottleneck_kernels.fused_bottleneck.launches = 0
+    quant.int8_conv.launches = 0
 
 
 def read_counts() -> dict:
@@ -1490,6 +1524,8 @@ def phase_slice():
          device_ms_per_image=device_ms_per_image,
          idle_share_untraced=1.0 - device_ms_per_image * images_per_sec / 1e3,
          **prof)
+    MEASURED["eval"] = {"images_per_sec": images_per_sec,
+                        "device_ms_per_image": device_ms_per_image}
     # The model's bf16 logits reach K1 as they are: no cast kernel between
     # the classifier and K1.
     before = kernels_before(lambda: step(model, batches[0]), "upsample_argmax")
@@ -1680,6 +1716,9 @@ def phase_serve():
     predictor = server.service.predictor
     canvases = np.stack([letterbox_image(img, cfg.data.crop_size)[0] for img in images[:8]])
     agree = fused_vs_standard(predictor, canvases, phase)
+    MEASURED["serve"] = {"requests_per_sec": 64 / wall,
+                         "latency_p50_ms": 1e3 * percentile(latencies, 50),
+                         "latency_p99_ms": 1e3 * percentile(latencies, 99)}
     emit(phase=phase, command="python -m zs3_tpu_torch.cli " + " ".join(SERVE_ARGS),
          requests=64, client_threads=16, setup_seconds_with_warmup=setup_s,
          requests_per_sec=64 / wall, requests_per_sec_windows=window_rates,
@@ -2309,6 +2348,8 @@ def time_zs3_step(trainer, phase: str, profile_phase: str):
     prof["kernels"], prof["ops"] = prof["kernels"][:15], prof["ops"][:15]
     if graph_kernels:
         prof["graph_kernels"] = graph_kernels
+    MEASURED[profile_phase] = {"steps_per_sec": steps_per_sec, "device_ms_per_step": step_ms,
+                               "trunk_device_ms": split["trunk"]}
     emit(phase=profile_phase, steps_per_pass=len(batches), device_ms_per_step=step_ms,
          k2_k3_device_ms_per_step=mmd_ms / (2 * len(batches)),
          host_ms_per_step=host_ms_per_step, stage_device_ms=split,
@@ -2611,6 +2652,7 @@ def phase_seen():
     bn_ms = sum(e["device_ms"] for e in prof["kernels"] if "batch_norm" in e["name"]) / 4
     prof["kernels"], prof["ops"] = prof["kernels"][:15], prof["ops"][:15]
 
+    MEASURED["seen"] = {"steps_per_sec": steps_per_sec, "device_ms_per_step": step_ms}
     emit(phase="seen profile", device_ms_per_step=step_ms, batch_norm_device_ms_per_step=bn_ms,
          host_ms_per_step=host_ms_per_step,
          idle_share_untraced=1.0 - step_ms * steps_per_sec / 1e3,
@@ -3265,6 +3307,375 @@ def phase_seen_reference():
          card_f32_vs_cpu_f64=card32, cpu_f32_vs_cpu_f64=cpu32, ok=True)
 
 
+def int8_forms(model):
+    """{form: conv} of the int8 path: the first conv of each distinct
+    geometry (kernel, stride, dilation), the ASPP's image-pool 1x1 on a
+    1x1 map (M = B rows) and the decoder's 3x3 on 304 channels."""
+    from zs3_tpu_torch import quant
+
+    forms = {}
+    for path, conv in quant.eligible_convs(model):
+        k, s, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+        label = {"global_pool.conv": "image pool 1x1 (M = B)",
+                 "fuse1.conv": "decoder 3x3"}.get(path, f"{k}x{k} stride {s} dilation {d}")
+        forms.setdefault(label, conv)
+    return forms
+
+
+def check_int8_forms(model, scales, images, phase):
+    """Each conv form's inputs from one int8 forward of `images`: the
+    quantized operands equal the CPU's (true f32 divisions), the route's
+    int32 sums (im2col + torch._int_mm) equal the plain float64 conv's,
+    and int8_conv's dequantized output equals the plain sums' bit for bit."""
+    from zs3_tpu_torch import quant
+
+    forms = int8_forms(model)
+    captured = {}
+    hooks = [conv.register_forward_pre_hook(
+        lambda module, args, label=label: captured.__setitem__(label, args[0]))
+        for label, conv in forms.items()]
+    try:
+        with torch.inference_mode(), quant.quantized(scales):
+            model.forward_features(images)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    rows = []
+    with torch.inference_mode():
+        for label, conv in forms.items():
+            t0 = time.time()
+            x, absmax = captured[label], scales[conv.quant_path]
+            geometry = (conv.stride, conv.padding, conv.dilation)
+            xq, wq, s_act, s_w = quant.quantize_operands(x, conv.weight, absmax)
+            cpu = quant.quantize_operands(x.cpu(), conv.weight.cpu(), absmax)
+            check(torch.equal(xq.cpu(), cpu[0]) and torch.equal(wq.cpu(), cpu[1]), phase,
+                  f"{label}: the card's int8 operands differ from the CPU's")
+            route = quant.int8_conv_route(xq, wq, *geometry)
+            plain = quant.int8_conv_plain(xq, wq, *geometry)
+            check(torch.equal(route, plain), phase,
+                  f"{label}: route sums differ from the plain conv's by "
+                  f"{int((route.long() - plain.long()).abs().max())}")
+            got = quant.int8_conv(x, conv.weight, absmax, *geometry, conv.compute_dtype)
+            want = quant.dequantize(plain, s_act, s_w, conv.compute_dtype)
+            check(torch.equal(got, want), phase, f"{label}: dequantized outputs differ")
+            b, c, h, w = x.shape
+            rows.append({"form": label, "conv": conv.quant_path, "input": [b, c, h, w],
+                         "gemm_mkn": [route.numel() // wq.shape[0], wq[0].numel(), wq.shape[0]],
+                         "exact": True, "check_seconds": time.time() - t0})
+    return rows
+
+
+def int8_route_ms(conv, absmax, x):
+    """The int8 route on one conv's shape: quantize, im2col, the GEMM alone,
+    the whole int8_conv, against cuDNN's bf16 conv (library) and the port's
+    bf16 path, with the bound of the int8 work and the route's peak memory.
+    CUDA events over 10 calls, median of 3."""
+    import torch.nn.functional as F
+
+    from zs3_tpu_torch import quant
+
+    geometry = (conv.stride, conv.padding, conv.dilation)
+    w = conv.weight
+    with torch.inference_mode():
+        xq, wq, _, _ = quant.quantize_operands(x, w, absmax)
+        cols, _ = quant.im2col(xq, conv.kernel_size, *geometry)
+        wmat = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1).t()
+        wb = w.to(torch.bfloat16)
+        m, k, n = cols.shape[0], cols.shape[1], wq.shape[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        quant.int8_conv(x, w, absmax, *geometry, torch.bfloat16)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        label = conv.quant_path
+        out = {
+            "conv": label, "input": list(x.shape), "gemm_mkn": [m, k, n],
+            "quantize_ms": time_ms(lambda: quant.quantize_operands(x, w, absmax),
+                                   reps=10, rounds=3, what=f"{label} quantize"),
+            "im2col_ms": time_ms(lambda: quant.im2col(xq, conv.kernel_size, *geometry),
+                                 reps=10, rounds=3, what=f"{label} im2col"),
+            "gemm_ms": time_ms(lambda: torch._int_mm(cols, wmat), reps=10, rounds=3, what=f"{label} _int_mm"),
+            "ms": time_ms(lambda: quant.int8_conv(x, w, absmax, *geometry, torch.bfloat16),
+                          reps=10, rounds=3, what=f"{label} int8_conv"),
+            "library_ms": time_ms(lambda: F.conv2d(x, wb, None, *geometry),
+                                  reps=10, rounds=3, what=f"{label} cuDNN bf16"),
+            "port_bf16_ms": time_ms(lambda: conv(x), reps=10, rounds=3, what=f"{label} port bf16"),
+            "peak_mib": peak / 2**20,
+        }
+    ops = 2.0 * m * k * n
+    conv_bytes = x.numel() * x.element_size() + w.numel() * 4 + m * n * 2
+    gemm_bytes = m * k + k * n + 4 * m * n
+    out["bound_ms"] = 1e3 * max(ops / INT8_OPS_PER_S, conv_bytes / HBM_BYTES_PER_S)
+    out["bound_by"] = "operations" if ops / INT8_OPS_PER_S > conv_bytes / HBM_BYTES_PER_S \
+        else "bytes"
+    out["gemm_bound_ms"] = 1e3 * max(ops / INT8_OPS_PER_S, gemm_bytes / HBM_BYTES_PER_S)
+    out["bf16_bound_ms"] = 1e3 * max(ops / BF16_FLOPS_PER_S, conv_bytes / HBM_BYTES_PER_S)
+    return out
+
+
+def phase_int8():
+    """int8 PTQ, QAT and --int8-features at full width (R101, os16, 513²,
+    bf16), each path through its entry point with the counts set to 0
+    just before: `evaluate --int8` (K1 once per eval batch, int8_conv
+    112 times per forward), the route held against its plain version for
+    every conv form on the inputs that path gives, absmax and 99.99%
+    calibration, int8 and bf16 eval in turns, `serve --int8 --calib-images
+    --int8-percentile 99.99 --fused-tail --serve-batch 8` (K4 once per
+    batched forward), `train-seen --qat` (3 steps) and `train-gmmn
+    --int8-features` (2 steps and a validation: K2 3 and K3 2 a step);
+    then the route's time on three shapes against cuDNN's bf16 conv.
+    K4 runs in the calibration forwards too (float, fused tail)."""
+    import numpy as np
+
+    from zs3_tpu_torch import cli, quant
+    from zs3_tpu_torch.data.transforms import letterbox_image
+    from zs3_tpu_torch.ops.eval_kernels import predict_labels
+    from zs3_tpu_torch.serve import InferenceServer
+    from zs3_tpu_torch.train.seen import device_batch, make_eval_step, select_eval_step
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    phase = "int8"
+    t_phase = time.time()
+    cuda = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # evaluate --int8: calibration on the first 2 val batches, then every
+    # eval batch int8, K1 on its logits.
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    result, trainer = cli.run(INT8_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, int8_launches = read_counts(), quant.int8_conv.launches
+    scales = trainer.int8_scales()
+    eval_batches = len(trainer.val_loader)
+    check(len(scales) == INT8_CONVS, phase, f"{len(scales)} quantized convs, not {INT8_CONVS}")
+    check(launches == {"K1": eval_batches, "K2": 0, "K3": 0, "K4": 0, "K5": 0}, phase,
+          f"launches {launches} for {eval_batches} eval batches")
+    check(int8_launches == INT8_CONVS * eval_batches, phase,
+          f"int8_conv launched {int8_launches} times for {eval_batches} eval batches")
+    check(all(is_finite(v) for v in result.values()), phase, f"non-finite metrics {result}")
+    emit(phase="int8 evaluate", at_seconds=time.time() - t_phase, command="python -m zs3_tpu_torch.cli " + " ".join(INT8_ARGS),
+         metrics=result, launches=launches, int8_conv_launches=int8_launches,
+         quantized_convs=len(scales), eval_batches=eval_batches,
+         wall_seconds_with_setup=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    model, n = trainer.model, trainer.num_classes
+    batches = [device_batch(b, cuda) for b in trainer.val_loader]
+    emit(phase="int8 route", at_seconds=time.time() - t_phase, forms=check_int8_forms(model, scales, batches[0]["image"], phase),
+         ok=True)
+
+    # Calibration on 2 eval batches: absmax (the path's) and percentile 99.99,
+    # whose decoder input holds more than 2^24 values.
+    images = [b["image"] for b in batches[:2]]
+    t0 = time.perf_counter()
+    absmax = quant.calibrate(model, images)
+    absmax_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pct = quant.calibrate(model, images, percentile=99.99)
+    pct_s = time.perf_counter() - t0
+    rel = max(abs(absmax[k] - scales[k]) / scales[k] for k in scales)
+    check(set(absmax) == set(pct) == set(scales) and rel <= 1e-3, phase,
+          f"calibration again: {len(absmax)} convs, largest relative change {rel}")
+    check(all(0 < pct[k] <= absmax[k] for k in pct), phase, "a percentile above its absmax")
+    decoder_in = images[0].shape[0] * 304 * 129 * 129
+    emit(phase="int8 calibration", at_seconds=time.time() - t_phase, batches=2, absmax_seconds=absmax_s,
+         percentile_seconds=pct_s, quantized_convs=len(pct), largest_input_values=decoder_in,
+         over_2_24=decoder_in > 2**24, absmax_again_max_rel_change=rel,
+         percentile_over_absmax_median=float(np.median([pct[k] / absmax[k] for k in pct])))
+
+    # Eval images/s, int8 and bf16 in turns (bf16, int8, int8, bf16) over the
+    # same device batches: 5 windows of one pass; device ms per image.
+    train_cfg = dataclasses.replace(trainer.cfg.train, int8_eval=True)
+    steps = {"bf16": make_eval_step(n, 255),
+             "int8": select_eval_step(n, 255, train_cfg, scales)}
+    per_pass = sum(int(b["image"].shape[0]) for b in batches)
+    rates = {}
+    for turn, name in enumerate(("bf16", "int8", "int8", "bf16")):
+        one_pass = lambda step=steps[name]: [step(model, b) for b in batches]
+        median, spread = rate_windows(one_pass, calls=1)
+        rates[f"{turn}_{name}"] = {"images_per_sec": per_pass * median,
+                                   "windows": [per_pass * r for r in spread]}
+    device = {}
+    for name, step in steps.items():
+        prof = profile_device(lambda step=step: [step(model, b) for b in batches], steps=1)
+        device[name] = prof["device_busy_ms"] / per_pass
+    agree = total = 0
+    with torch.inference_mode():
+        for b in batches:
+            size = tuple(b["image"].shape[1:3])
+            want = predict_labels(model.classify(model.forward_features(b["image"])), size)
+            with quant.quantized(scales):
+                got = predict_labels(model.classify(model.forward_features(b["image"])), size)
+            agree += int((got == want).sum())
+            total += got.numel()
+    int8_rate = rates["1_int8"]["images_per_sec"]
+    bf16_rate = rates["0_bf16"]["images_per_sec"]
+    emit(phase="int8 eval", at_seconds=time.time() - t_phase, eval_batch=int(batches[0]["image"].shape[0]), turns=rates,
+         device_ms_per_image=device, idle_share_untraced={
+             "int8": 1.0 - device["int8"] * int8_rate / 1e3,
+             "bf16": 1.0 - device["bf16"] * bf16_rate / 1e3},
+         int8_over_bf16_images_per_sec=int8_rate / bf16_rate,
+         label_agreement_int8_vs_bf16=agree / total, pixels=total,
+         slice_bf16=MEASURED.get("eval"))
+    del trainer, steps, batches, images
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve --int8: calibrated at start-up on 8 PNG files (99.99th
+    # percentile), then 64 POSTs from 16 clients.
+    calib_dir = os.path.join(SCRATCH, "calib")
+    os.makedirs(calib_dir, exist_ok=True)
+    calib = []
+    for i, img in enumerate(voc_like_images(6, 8)):
+        calib.append(os.path.join(calib_dir, f"calib{i}.png"))
+        with open(calib[-1], "wb") as f:
+            f.write(png_bytes(img))
+    serve_args = [*SERVE_ARGS, "--int8", "--int8-percentile", "99.99", "--calib-images", *calib]
+    args = cli.make_parser().parse_args(serve_args)
+    cfg = cli.build_config(args)
+    images = voc_like_images(4, 64)
+    bodies = [png_bytes(img) for img in images]
+    reset_counts()
+    t0 = time.time()
+    server = InferenceServer(cfg, port=args.port, serve_batch=args.serve_batch,
+                             device=args.device, int8_calib_images=args.calib_images
+                             ).start(warmup=True)
+    try:
+        setup_s = time.time() - t0
+        batcher, service = server.service.batcher, server.service
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(16) as pool:
+            results = list(pool.map(lambda body: post(server.port, body), bodies))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches, int8_launches = read_counts(), quant.int8_conv.launches
+    finally:
+        server.stop()
+    shutil.rmtree(calib_dir, ignore_errors=True)
+    for (status, pred, _), img in zip(results, images):
+        check(status == 200 and pred.shape == img.shape[:2] and int(pred.max()) < n, phase,
+              f"int8 serve answer {status} {getattr(pred, 'shape', pred)}")
+    check(service.int8_convs == service.info()["int8_convs"] == INT8_CONVS, phase,
+          f"serve quantized {service.int8_convs} convs")
+    calib_batches = -(-len(calib) // SERVE_BATCH)  # Predictor.quantize's calib_batch is 8
+    check(launches["K4"] == batcher.groups + calib_batches and launches["K1"] == 0, phase,
+          f"launches {launches} for {batcher.groups} batched forwards and "
+          f"{calib_batches} calibration batch")
+    check(int8_launches == INT8_CONVS * batcher.groups, phase,
+          f"int8_conv launched {int8_launches} times for {batcher.groups} forwards")
+    latencies = [r[2] for r in results]
+    predictor = service.predictor
+    frames = [letterbox_image(img, cfg.data.crop_size)[0] for img in images[:8]]
+    int8_scales = predictor._scales
+    turns, device = {}, {}
+    for turn, name in enumerate(("bf16", "int8", "int8", "bf16")):
+        predictor._scales = int8_scales if name == "int8" else None
+        median, spread = rate_windows(lambda: predictor.predict_batch(frames), calls=2)
+        turns[f"{turn}_{name}"] = {"images_per_sec": 8 * median,
+                                   "windows": [8 * r for r in spread]}
+        if turn < 2:
+            prof = profile_device(lambda: predictor.predict_batch(frames), steps=2)
+            device[name] = prof["device_busy_ms"] / 2
+    predictor._scales = int8_scales
+    emit(phase="int8 serve", at_seconds=time.time() - t_phase, command="python -m zs3_tpu_torch.cli " + " ".join(
+             [a if a not in calib else os.path.relpath(a) for a in serve_args]),
+         requests=64, client_threads=16, setup_seconds_with_calibration=setup_s,
+         requests_per_sec=64 / wall, latency_p50_ms=1e3 * percentile(latencies, 50),
+         latency_p99_ms=1e3 * percentile(latencies, 99), batch_groups=batcher.groups,
+         launches=launches, int8_conv_launches=int8_launches, int8_convs=service.int8_convs,
+         predict_batch=turns, device_ms_per_batch=device, idle_share_untraced={
+             name: 1.0 - device[name] * turns[f"{i}_{name}"]["images_per_sec"] / 8 / 1e3
+             for i, name in enumerate(("bf16", "int8"))},
+         serve_bf16=MEASURED.get("serve"))
+    del server, service, predictor, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train-seen --qat: 3 steps at batch 8 on fake-quantized operands.
+    reset_counts()
+    t0 = time.time()
+    result, trainer = cli.run(QAT_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, int8_launches = read_counts(), quant.int8_conv.launches
+    check(trainer.cfg.train.qat and trainer.step == QAT_STEPS, phase,
+          f"train-seen --qat took {trainer.step} steps")
+    check(is_finite(result["train_loss"]), phase, f"QAT loss {result['train_loss']}")
+    check(all(v == 0 for v in launches.values()) and int8_launches == 0, phase,
+          f"QAT (fake-quant, no validation) launched {launches}, int8 {int8_launches}")
+    host_batches = [b for _, b in zip(range(QAT_STEPS), trainer.train_loader)]
+    batches = itertools.cycle([device_batch(b, cuda) for b in host_batches])
+    one_step = lambda: trainer.train_step(trainer.model, trainer.optimizer, next(batches))
+    losses = [float(one_step()["loss"]) for _ in range(QAT_STEPS)]
+    check(all(is_finite(v) for v in losses), phase, f"non-finite QAT losses {losses}")
+    steps_per_sec, spread = rate_windows(one_step, calls=QAT_STEPS, windows=3)
+    prof = profile_device(one_step, steps=2)
+    step_ms = prof["device_busy_ms"] / 2
+    emit(phase="int8 qat", at_seconds=time.time() - t_phase, command="python -m zs3_tpu_torch.cli " + " ".join(QAT_ARGS),
+         result=result, launches=launches, steps=QAT_STEPS, losses=losses,
+         wall_seconds_with_setup=wall, steps_per_sec=steps_per_sec,
+         steps_per_sec_windows=spread, device_ms_per_step=step_ms,
+         idle_share_untraced=1.0 - step_ms * steps_per_sec / 1e3,
+         seen_bf16=MEASURED.get("seen"), kernels=prof["kernels"][:8])
+    del trainer, batches, one_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train-gmmn --int8-features: 2 steps on int8 trunk features, then an
+    # int8 validation.
+    reset_counts()
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random trunk's warning
+        result, trainer = cli.run(INT8_ZS3_ARGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, int8_launches = read_counts(), quant.int8_conv.launches
+    eval_batches = len(trainer.val_loader)
+    want = {"K1": eval_batches, "K2": 3 * INT8_ZS3_STEPS, "K3": 2 * INT8_ZS3_STEPS,
+            "K4": 0, "K5": 0}
+    check(launches == want, phase, f"int8-features launches {launches}, expected {want}")
+    check(int8_launches == INT8_CONVS * (INT8_ZS3_STEPS + eval_batches), phase,
+          f"int8_conv launched {int8_launches} times")
+    check(all(is_finite(v) for k, v in result.items() if k != "epoch") and result["mmd"] > 0,
+          phase, f"int8-features results {result}")
+    host_batches = [b for _, b in zip(range(INT8_ZS3_STEPS), trainer.train_loader)]
+    batches = [device_batch(b, cuda) for b in host_batches]
+    turn = itertools.cycle(batches)
+    index = itertools.count(trainer.global_step)
+    one_step = lambda: trainer.step(next(turn), step=next(index))
+    steps_per_sec, spread = rate_windows(one_step, calls=5)
+    prof = profile_device(one_step, steps=2)
+    trunk = profile_device(lambda: trainer.step.features(batches[0]), steps=2)
+    step_ms, trunk_ms = prof["device_busy_ms"] / 2, trunk["device_busy_ms"] / 2
+    emit(phase="int8 zs3", at_seconds=time.time() - t_phase, command="python -m zs3_tpu_torch.cli " + " ".join(INT8_ZS3_ARGS),
+         result=result, launches=launches, int8_conv_launches=int8_launches,
+         steps=INT8_ZS3_STEPS, eval_batches=eval_batches, wall_seconds_with_setup=wall,
+         steps_per_sec=steps_per_sec, steps_per_sec_windows=spread,
+         device_ms_per_step=step_ms, trunk_device_ms=trunk_ms,
+         idle_share_untraced=1.0 - step_ms * steps_per_sec / 1e3,
+         zs3_bf16=MEASURED.get("zs3 profile"))
+
+    # The route on three shapes at batch 8 against cuDNN's bf16 conv.
+    model = trainer.model
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes = (("backbone.layer3.1.conv1", (8, 1024, 33, 33)),
+              ("aspp3.conv", (8, 2048, 33, 33)), ("fuse1.conv", (8, 304, 129, 129)))
+    convs = dict(model.named_modules())
+    scales = trainer.trunk_int8_scales()
+    route = []
+    for path, shape in shapes:
+        x = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        route.append(int8_route_ms(convs[path], scales[path], x))
+    emit(phase="int8 route", at_seconds=time.time() - t_phase, step="int8 route against cuDNN bf16, batch 8", shapes=route)
+    emit(phase=phase, seconds=time.time() - t_phase, ok=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3301,6 +3712,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     data = phase_data()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_int8()
     phase_reference()
     phase_zs3_reference()
     phase_graph_reference()

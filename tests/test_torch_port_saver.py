@@ -153,5 +153,11 @@ def test_cli_train_seen_and_auto_resume(tmp_path):
     _, again = cli.run(argv + ["--auto-resume"])
     assert again.cfg.train.resume == Saver.latest_checkpoint(trainer.saver.directory)
     assert again.step == 2
-    with pytest.raises(NotImplementedError, match="qat"):
-        cli.run(argv + ["--qat"])
+    # --qat, refused before the port had quantization: quantization-aware
+    # training from the same flags (a fresh run: no --auto-resume).
+    from tests.test_torch_port_quant import one_thread
+
+    with one_thread():
+        qat_result, qat_trainer = cli.run(argv + ["--qat", "--checkname", "qat"])
+    assert qat_trainer.cfg.train.qat and qat_trainer.step == 1
+    assert np.isfinite(qat_result["train_loss"])

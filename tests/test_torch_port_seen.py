@@ -74,8 +74,9 @@ def _batch(seed, bsz=4):
     return {"image": images, "label": labels}
 
 
-def _pair(optim=None):
-    """(zs3_tpu state, its apply config, port model, port config)."""
+def _pair(optim=None, f64=False):
+    """(zs3_tpu state, its apply config, port model, port config); with
+    `f64` both models compute in float64 (zs3_tpu's under jax.enable_x64)."""
     jcfg = JaxConfig(
         model=JaxModelConfig(backbone="resnet50", num_classes=NUM_CLASSES,
                              compute_dtype="float32", dropout=False),
@@ -83,12 +84,18 @@ def _pair(optim=None):
     )
     cfg = Config.from_json(jcfg.to_json())
     model = DeepLab(backbone="resnet50", num_classes=NUM_CLASSES, dropout=False,
-                    layers=LAYERS)
+                    layers=LAYERS, dtype=torch.float64 if f64 else torch.float32)
     _randomize_bn_stats(init_deeplab(model, 0), seed=1)
+    if f64:  # train-mode BN takes parameters of its input's dtype
+        model.double()
+        with torch.no_grad():  # see tests/test_torch_port_quant_paths.py
+            stem = model.backbone.conv1.weight
+            stem.copy_(torch.round(stem * 64) / 64)
     params, stats = convert_deeplab_state_dict(
         {k: v.numpy() for k, v in model.state_dict().items()
          if not k.endswith("num_batches_tracked")})
-    jmodel = TinyJaxDeepLab(backbone="resnet50", num_classes=NUM_CLASSES, dropout=False)
+    jmodel = TinyJaxDeepLab(backbone="resnet50", num_classes=NUM_CLASSES, dropout=False,
+                            dtype=jnp.float64 if f64 else jnp.float32)
     state = create_seg_state(jmodel, jcfg, jax.random.key(0), (1, 33, 33, 3), TOTAL_STEPS,
                              init_variables={"params": params, "batch_stats": stats})
     return state, jcfg, model, cfg
@@ -177,9 +184,9 @@ def test_train_step_with_nesterov_focal_and_class_weights():
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """(qat was refused here until the port had quantization:
+    tests/test_torch_port_quant_paths.py runs its step against zs3_tpu's.)"""
     loss = losses.build_seg_loss("ce")
-    with pytest.raises(NotImplementedError, match="qat"):
-        make_train_step(loss, qat=True)
     with pytest.raises(ValueError):
         make_train_step(loss, grad_accum=0)
     model = DeepLab(backbone="resnet50", num_classes=NUM_CLASSES, dropout=False, layers=LAYERS)

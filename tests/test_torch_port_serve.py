@@ -129,9 +129,28 @@ def test_predict_sliding_matches_zs3_tpu(predictor_pair, rng):
 
 
 def test_predictor_refuses_int8(predictor_pair, rng):
-    _, ours, _ = predictor_pair
-    with pytest.raises(NotImplementedError, match="Queue 1, Quantization"):
-        ours.quantize([_image(rng, 33, 33)])
+    """Predictor.quantize, refused before the port had quantization, now
+    calibrates: it refuses only an empty calibration set, warns past its
+    cap, quantizes the 61 eligible convs, and every later forward runs
+    under its scales (tests/test_torch_port_quant_paths.py holds it against
+    zs3_tpu's Predictor).  A fresh predictor: quantize() switches the
+    fixture's to int8 for good."""
+    from zs3_tpu_torch import quant
+    from zs3_tpu_torch.data.transforms import batched_normalize_device
+
+    from tests.test_torch_port_quant import one_thread
+
+    with one_thread():
+        ours = Predictor(predictor_pair[1].cfg, checkpoint=predictor_pair[2], device="cpu")
+        with pytest.raises(ValueError, match="at least one image"):
+            ours.quantize([])
+        calib = [_image(rng, *hw) for hw in [(40, 50), (33, 33), (20, 45)]]
+        with pytest.warns(UserWarning, match="first 2 of 3"):
+            assert ours.quantize(calib, calib_batch=1, max_batches=2) == len(ours._scales) == 61
+        canvases = np.stack([_image(rng, 33, 33) for _ in range(2)])
+        with torch.no_grad(), quant.quantized(ours._scales):
+            want = ours.model(batched_normalize_device(torch.from_numpy(canvases))).argmax(-1)
+        np.testing.assert_array_equal(ours._predict(canvases), want.numpy())
 
 
 def _cfg(**model):
@@ -253,15 +272,28 @@ def test_device_failure_answers_500_to_every_waiter(rng, monkeypatch):
         srv.stop()
 
 
-def test_artifact_and_int8_are_refused():
+def test_artifact_and_int8_are_refused(tmp_path, rng):
+    """Artifacts are refused (not ported); int8 serving, refused before
+    the port had quantization, is refused only without calibration
+    images, and otherwise calibrates on them and reports its int8 convs."""
     with pytest.raises(NotImplementedError, match="artifact"):
         SegmentationService(_cfg(), artifact="model.pt2", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        SegmentationService(_cfg(), int8_calib_images=["a.png"], device="cpu")
-    with pytest.raises(SystemExit, match="int8"):
-        cli.run(["infer", "a.png", "--int8", *CPU_ARGS])
     with pytest.raises(SystemExit, match="artifact"):
         cli.run(["serve", "--artifact", "model.pt2", *CPU_ARGS])
+    with pytest.raises(SystemExit, match="--calib-images"):
+        cli.run(["serve", "--int8", *CPU_ARGS])
+    paths = []
+    for i, hw in enumerate([(40, 50), (33, 33)]):
+        paths.append(str(tmp_path / f"c{i}.png"))
+        Image.fromarray(_image(rng, *hw)).save(paths[-1])
+    from tests.test_torch_port_quant import one_thread
+
+    with one_thread():
+        service = SegmentationService(_cfg(), int8_calib_images=paths, device="cpu")
+        assert service.int8_convs == len(service.predictor._scales) == 61
+        assert service.info()["int8_convs"] == 61
+        png = service.predict_image(_image(rng, 20, 30))
+    assert Image.open(io.BytesIO(png)).size == (30, 20)
 
 
 @pytest.mark.parametrize("sliding", [False, True])

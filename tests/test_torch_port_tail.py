@@ -430,11 +430,29 @@ def test_tta_eval_step_confusions_match_zs3_tpu(r50_tta, jax_confusions):
         np.testing.assert_array_equal(step(model, device_batch(batch, "cpu")).numpy(), want)
 
 
-def test_evaluate_refuses_int8_eval():
-    cfg = Config()
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True))
-    with pytest.raises(NotImplementedError, match="int8 PTQ evaluation"):
-        evaluate(cfg, device="cpu")
+def test_evaluate_refuses_int8_eval(r50_tta):
+    """int8_eval was refused until the port had quantization.  Now the
+    eval step refuses it only without calibrated scales (it never runs
+    in float), and `evaluate` (single-scale here: the TTA step runs int8
+    in test_gmmn_trainer_validates_under_tta) calibrates once on the
+    first 2 val batches and validates under those scales."""
+    from zs3_tpu_torch.train.seen import SeenTrainer, calibrate_on_val
+
+    from tests.test_torch_port_quant import one_thread
+
+    with one_thread():
+        _, _, _, _, cfg = r50_tta
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True, eval_scales=(1.0,),
+                                                    eval_flip=False),
+                          data=dataclasses.replace(cfg.data, eval_batch_size=2))
+        with pytest.raises(ValueError, match="int8_eval"):
+            select_eval_step(21, 255, cfg.train)
+        trainer = SeenTrainer(cfg, device="cpu")
+        report = trainer.validate(epoch=0)
+        scales = trainer.int8_scales()
+        assert len(scales) == 61 and trainer.int8_scales() is scales  # calibrated once
+        assert calibrate_on_val(trainer.model, trainer.val_loader, torch.device("cpu")) == scales
+        assert np.isfinite(report["miou"]) and 0.0 <= report["pixel_accuracy"] <= 1.0
 
 
 def test_gmmn_trainer_validates_under_tta(r50_tta):
@@ -452,6 +470,20 @@ def test_gmmn_trainer_validates_under_tta(r50_tta):
     )
     got = trainer.eval_fn(trainer.model, trainer.step.cls, batch)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    with pytest.raises(NotImplementedError, match="int8_eval"):
-        GMMNTrainer(cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True)),
-                    device="cpu")
+    # int8_eval, refused here until the port had quantization: the TTA step
+    # runs under the trunk's scales.
+    from zs3_tpu_torch import quant
+
+    from tests.test_torch_port_quant import one_thread
+
+    with one_thread():
+        int8 = GMMNTrainer(cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True),
+                                       data=dataclasses.replace(cfg.data, eval_batch_size=2)),
+                           device="cpu")
+        scales = int8.trunk_int8_scales()
+        batch = {k: v[:2] for k, v in batch.items()}
+        with quant.quantized(scales):
+            want = tta.make_tta_eval_step(int8.num_classes, 255, (0.75, 1.0), True)(
+                int8.model, batch)
+        got = int8.eval_fn(int8.model, int8.step.cls, batch)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

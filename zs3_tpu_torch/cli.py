@@ -9,6 +9,10 @@
     python -m zs3_tpu_torch.cli train-seen --dataset pascal --use-sbd --data-root /data
     python -m zs3_tpu_torch.cli infer img1.png img2.jpg --output preds --fused-tail
     python -m zs3_tpu_torch.cli serve --port 8500 --serve-batch 8 --fused-tail
+    python -m zs3_tpu_torch.cli evaluate --int8 --int8-percentile 99.99 --resume CKPT
+    python -m zs3_tpu_torch.cli serve --int8 --calib-images a.jpg b.jpg --serve-batch 8
+    python -m zs3_tpu_torch.cli train-seen --qat --dataset synthetic --unseen-split 2
+    python -m zs3_tpu_torch.cli train-gmmn --int8-features --unseen-split 2 --resume CKPT
     python -m zs3_tpu_torch.cli prepare-context trainval_merged.json --data-root /data
     python -m zs3_tpu_torch.cli build-embeddings GoogleNews.bin --dataset context --output e.npy
 
@@ -93,7 +97,9 @@ def _add_train_seen(p: argparse.ArgumentParser):
                    help="microbatches per optimizer step: batch-size stays the "
                         "effective batch")
     p.add_argument("--qat", action="store_true", default=None,
-                   help="quantization-aware training (not ported yet; refused)")
+                   help="quantization-aware training: convs train on fake-quantized "
+                        "int8-grid operands (straight-through gradients), so the trunk "
+                        "loses less accuracy under evaluate/infer/serve --int8")
 
 
 def _add_gmmn(p: argparse.ArgumentParser):
@@ -108,9 +114,21 @@ def _add_gmmn(p: argparse.ArgumentParser):
                         "neighbouring regions (GraphContextGMMN)")
 
 
-def _add_int8(p: argparse.ArgumentParser):
-    p.add_argument("--int8", action="store_true",
-                   help="int8 PTQ inference (not ported yet; refused)")
+def _add_int8_percentile(p: argparse.ArgumentParser):
+    p.add_argument("--int8-percentile", type=float, default=None, metavar="P",
+                   help="calibrate int8 activation scales to this percentile of "
+                        "|conv input| (e.g. 99.99) instead of its max (default: absmax)")
+
+
+def _add_int8(p: argparse.ArgumentParser, help: str):
+    p.add_argument("--int8", action="store_true", help=help)
+    _add_int8_percentile(p)
+
+
+_EVAL_INT8 = ("validate with int8 PTQ convs, calibrated on the first 2 val batches "
+              "(s8 x s8 -> s32 on the GPU)")
+_INFER_INT8 = "int8 PTQ inference, calibrated on the first 8 input images"
+_SERVE_INT8 = "int8 PTQ inference; requires --calib-images"
 
 
 def _add_infer(p: argparse.ArgumentParser):
@@ -130,6 +148,8 @@ def _add_serve(p: argparse.ArgumentParser):
                    help="micro-batch up to N concurrent requests onto one forward")
     p.add_argument("--artifact", type=str, default=None,
                    help="serve an exported artifact (not ported yet; refused)")
+    p.add_argument("--calib-images", nargs="+", default=None,
+                   help="representative images for int8 activation calibration")
 
 
 def _add_prepare_context(p: argparse.ArgumentParser):
@@ -167,6 +187,9 @@ def build_config(args: argparse.Namespace) -> Config:
 
     # --no-val: an effectively infinite eval interval, as in zs3_tpu.
     eval_interval = 10**9 if flag("no_val") else flag("eval_interval")
+    # --int8 of evaluate[-gmmn] is int8 validation; infer and serve calibrate
+    # on their images instead.
+    int8_eval = True if flag("int8") and args.command in ("evaluate", "evaluate-gmmn") else None
 
     unseen: Optional[tuple] = None
     if args.unseen_split is not None:
@@ -220,6 +243,9 @@ def build_config(args: argparse.Namespace) -> Config:
             checkpoint_dir=flag("checkpoint_dir"),
             grad_accum=flag("grad_accum"),
             qat=flag("qat"),
+            int8_eval=int8_eval,
+            int8_features=flag("int8_features"),
+            int8_percentile=flag("int8_percentile"),
             epochs=flag("epochs"),
             steps_per_epoch=flag("steps_per_epoch"),
             eval_interval=eval_interval,
@@ -247,25 +273,30 @@ def make_parser() -> argparse.ArgumentParser:
     evaluate = sub.add_parser("evaluate")
     _add_common(evaluate)
     _add_checkpoints(evaluate)
-    _add_int8(evaluate)
+    _add_int8(evaluate, _EVAL_INT8)
     for name in ("train-gmmn", "train-zs5"):
         train = sub.add_parser(name)
         _add_common(train)
         _add_checkpoints(train)
         _add_schedule(train)
         _add_gmmn(train)
+        train.add_argument("--int8-features", action="store_true", default=None,
+                           help="extract the frozen trunk's features with int8 convs "
+                                "(calibrated on the first 2 val batches); validation "
+                                "and ZS5's pseudo-labels run int8 too")
+        _add_int8_percentile(train)
     evaluate_gmmn = sub.add_parser("evaluate-gmmn")
     _add_common(evaluate_gmmn)
     _add_checkpoints(evaluate_gmmn)
     _add_gmmn(evaluate_gmmn)
-    _add_int8(evaluate_gmmn)
+    _add_int8(evaluate_gmmn, _EVAL_INT8)
     infer = sub.add_parser("infer")
     _add_common(infer)
-    _add_int8(infer)
+    _add_int8(infer, _INFER_INT8)
     _add_infer(infer)
     serve = sub.add_parser("serve")
     _add_common(serve)
-    _add_int8(serve)
+    _add_int8(serve, _SERVE_INT8)
     _add_serve(serve)
     prepare = sub.add_parser("prepare-context")
     _add_common(prepare)
@@ -310,12 +341,11 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     cfg = build_config(args)
     if getattr(args, "auto_resume", None):
         cfg = auto_resume(cfg, args.command)
-    if getattr(args, "int8", False):
-        raise SystemExit(f"{args.command} --int8: int8 inference is not ported yet "
-                         "(see ROADMAP Queue 1, Quantization)")
     if getattr(args, "artifact", None):
         raise SystemExit("serve --artifact: exported artifacts are not ported yet "
                          "(see ROADMAP Queue 1, Export)")
+    if args.command == "serve" and args.int8 and not args.calib_images:
+        raise SystemExit("serve --int8 requires --calib-images")
 
     if args.command in ("train-seen", "evaluate"):
         from zs3_tpu_torch.train.seen import SeenTrainer
@@ -341,15 +371,26 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
         from zs3_tpu_torch.train.predict import Predictor
 
         predictor = Predictor(cfg, device=args.device)
+        if args.int8:
+            import numpy as np
+            from PIL import Image
+
+            calib = [np.asarray(Image.open(p).convert("RGB")) for p in args.images[:8]]
+            n_quant = predictor.quantize(calib, percentile=cfg.train.int8_percentile)
+            print(f"int8: quantized {n_quant} convs", file=sys.stderr)
         written = predictor.predict_files(
             args.images, args.output, colorize=not args.no_color, sliding=args.sliding,
         )
-        return {"written": len(written), "output": args.output}, predictor
+        result = {"written": len(written), "output": args.output}
+        if args.int8:
+            result["int8_convs"] = n_quant
+        return result, predictor
     if args.command == "serve":
         from zs3_tpu_torch.serve import InferenceServer
 
         server = InferenceServer(cfg, host=args.host, port=args.port,
-                                 serve_batch=args.serve_batch, device=args.device)
+                                 serve_batch=args.serve_batch, device=args.device,
+                                 int8_calib_images=args.calib_images if args.int8 else None)
         print(json.dumps({"serving": f"http://{args.host}:{server.port}"}),
               file=sys.stderr, flush=True)
         try:

@@ -86,6 +86,10 @@ class DeepLab(nn.Module):
                 self.add_module(name, child)
         object.__setattr__(self, "aspp", aspp)
         object.__setattr__(self, "decoder", decoder)
+        # Each conv's name for int8 scales (zs3_tpu.quant's module paths).
+        for name, module in self.named_modules():
+            if isinstance(module, Conv):
+                module.quant_path = name
 
     def forward_features(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image -> NHWC 256-d pixel embedding at the os4 grid (the

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from zs3_tpu_torch import quant
 
 # From this dilation on, a "same" conv runs as space-to-batch.  cuDNN's
 # bf16 NHWC engines on an H100 take a 3x3 conv up to dilation 10; from 11
@@ -60,7 +61,12 @@ def conv2d_space_to_batch(
 class Conv(nn.Conv2d):
     """2-D conv with torch-style integer padding that runs in `dtype`.
 
-    A "same" conv of large dilation runs as `conv2d_space_to_batch`."""
+    A "same" conv of large dilation runs as `conv2d_space_to_batch`.  As
+    zs3_tpu's _ConvImpl: an eligible conv (ungrouped, >= MIN_QUANT_IN_CH
+    input channels) whose `quant_path` has a scale under quant.quantized()
+    runs as quant.int8_conv; else, under quant.qat() and not excluded, it
+    runs the float conv on fake-quantized operands.  `quant_path` is the
+    conv's module name in its model (DeepLab sets it when built)."""
 
     def __init__(
         self,
@@ -78,11 +84,21 @@ class Conv(nn.Conv2d):
             dilation=dilation, bias=use_bias,
         )
         self.compute_dtype = dtype
+        self.quant_path = ""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype)
-        weight = self.weight.to(self.compute_dtype)
+        weight = self.weight
         bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        if quant.quantizable(self):
+            act_absmax = quant.scale_for(self.quant_path)
+            if act_absmax is not None:
+                y = quant.int8_conv(x, weight, act_absmax, self.stride, self.padding,
+                                    self.dilation, self.compute_dtype)
+                return y if bias is None else y + bias[:, None, None]
+            if quant.qat_active() and not quant.path_excluded(self.quant_path):
+                x, weight = quant.fake_quant_conv_operands(x, weight)
+        x = x.to(self.compute_dtype)
+        weight = weight.to(self.compute_dtype)
         d, k = self.dilation[0], self.kernel_size[0]
         if (
             d >= SPACE_TO_BATCH_MIN_DILATION

@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from zs3_tpu_torch import quant
 from zs3_tpu_torch.models.layers import (
     BatchNorm,
     Conv,
@@ -72,17 +73,22 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.remat and self.training and torch.is_grad_enabled():
+            # The recompute runs in the backward (on CUDA, on autograd's
+            # thread): it re-enters the forward's quantization state.
+            state = quant.current()
             return checkpoint(self._forward, x, use_reentrant=False,
-                              context_fn=lambda: (contextlib.nullcontext(), self._recomputing()))
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  self._recomputing(state)))
         return self._forward(x)
 
     @contextlib.contextmanager
-    def _recomputing(self):
+    def _recomputing(self, quant_state):
         bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
         for bn in bns:
             bn.update_stats = False
         try:
-            yield
+            with quant.restored(quant_state):
+                yield
         finally:
             for bn in bns:
                 bn.update_stats = True

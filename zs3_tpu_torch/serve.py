@@ -17,7 +17,9 @@ batched forwards and `?sliding=1` requests alike, is serialized behind
 one lock.  A bad image answers 400, a device failure 500, and an error
 in a batched forward reaches every request of its group.  The GPU is
 the default device; `device="cpu"` serves from the plain PyTorch path.
-Exported artifacts and int8 serving are not ported yet.
+With `int8_calib_images` the predictor calibrates int8 scales on those
+image files once, at start-up (Predictor.quantize), and serves int8.
+Exported artifacts are not ported yet.
 """
 
 from __future__ import annotations
@@ -114,14 +116,15 @@ class SegmentationService:
             raise NotImplementedError(
                 "serving an exported artifact is not ported yet: see ROADMAP Queue 1, Export"
             )
-        if int8_calib_images:
-            raise NotImplementedError(
-                "int8 serving is not ported yet: see ROADMAP Queue 1, Quantization"
-            )
         self.cfg = cfg
         self.batcher: Optional[_MicroBatcher] = None
         self._lock = threading.Lock()
         self.predictor = Predictor(cfg, checkpoint, device=device)
+        self.int8_convs = 0
+        if int8_calib_images:
+            calib = [np.asarray(Image.open(p).convert("RGB")) for p in int8_calib_images]
+            self.int8_convs = self.predictor.quantize(
+                calib, percentile=cfg.train.int8_percentile)
         if serve_batch > 1:
             self.batcher = _MicroBatcher(self.predictor, serve_batch, device_lock=self._lock)
         self.serve_batch = serve_batch
@@ -172,7 +175,7 @@ class SegmentationService:
             "warm": self.warm,
             "source": "checkpoint",
             "geometry": "letterbox",
-            "int8_convs": 0,
+            "int8_convs": self.int8_convs,
             "serve_batch": self.serve_batch,
             "recent_batch_sizes": (
                 list(self.batcher.batch_sizes)[-20:] if self.batcher else []

@@ -25,10 +25,16 @@ seen/unseen/harmonic mIoU through the eval step (kernel K1), or the
 ms+flip TTA step when `train.eval_scales`/`eval_flip` ask for it, and
 writes a checkpoint of the generator and the classifier with their
 optimizers under ``<checkname>-gmmn``; `train.gmmn_resume` restores one.
+
+With `train.int8_features` the frozen trunk extracts the step's features
+with int8 convs (quant.quantized(trunk scales), calibrated once on the
+first 2 val batches), and validation runs int8 too; `train.int8_eval`
+makes validation alone int8.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.config import Config, TrainConfig
 from zs3_tpu_torch.core.device import resolve_device
 from zs3_tpu_torch.data.loader import make_data_loader
@@ -50,7 +57,8 @@ from zs3_tpu_torch.ops.sampling import (
     sample_class_pixels, top_k_lower_first,
 )
 from zs3_tpu_torch.train.seen import (
-    build_eval_model, device_batch, preprocess_on_device, select_eval_step, step_generator,
+    build_eval_model, calibrate_on_val, device_batch, preprocess_on_device, select_eval_step,
+    step_generator,
 )
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.saver import Saver
@@ -162,7 +170,8 @@ class ZS3Step:
     folds the step into its key), so a resumed run draws what an
     uninterrupted one would; the graph branch draws nothing.  `body` also takes the draws
     as an argument (tests feed it zs3_tpu's); the gradients of the last
-    update stay in the parameters' `.grad`.
+    update stay in the parameters' `.grad`.  With `int8_scales` the trunk
+    extracts its features under quant.quantized(int8_scales).
     """
 
     def __init__(
@@ -174,8 +183,10 @@ class ZS3Step:
         unseen_mask: torch.Tensor,
         cfg: Config,
         seed: int,
+        int8_scales: Optional[quant.Scales] = None,
     ):
         self.model = model.eval()
+        self.int8_scales = int8_scales
         self.generator = generator
         self.embeddings = embeddings
         self.unseen_mask = unseen_mask
@@ -199,7 +210,8 @@ class ZS3Step:
         """Frozen-trunk features (N, D) f32 and their labels (N,) at the
         feature grid.  no_grad, not inference_mode: KernelSum saves the
         real features for its backward."""
-        with torch.no_grad():
+        int8 = quant.quantized(self.int8_scales) if self.int8_scales else contextlib.nullcontext()
+        with torch.no_grad(), int8:
             feats = self.model.forward_features(batch["image"])
         b, h, w, d = feats.shape
         labels = downsample_labels(batch["label"], (h, w))
@@ -303,28 +315,18 @@ class ZS3Step:
 
 
 def make_zs3_eval_step(
-    num_classes: int, ignore_index: int = 255, train_cfg: TrainConfig = TrainConfig()
+    num_classes: int, ignore_index: int = 255, train_cfg: TrainConfig = TrainConfig(),
+    scales: Optional[quant.Scales] = None,
 ):
     """eval_step(model, cls_params, batch) -> (C, C) confusion: splice the
     classifier, then the eval step `train_cfg` selects (features,
-    classify, K1, confusion; or ms+flip TTA)."""
-    eval_step = select_eval_step(num_classes, ignore_index, train_cfg)
+    classify, K1, confusion; or ms+flip TTA), int8 under `scales`."""
+    eval_step = select_eval_step(num_classes, ignore_index, train_cfg, scales)
 
     def zs3_eval_step(model: DeepLab, cls_params: Params, batch) -> torch.Tensor:
         return eval_step(splice_classifier(model, cls_params), batch)
 
     return zs3_eval_step
-
-
-def refuse_unported(cfg: Config):
-    """Raise for the settings whose code paths are not ported yet."""
-    unported = {
-        "train.int8_features": cfg.train.int8_features,
-        "train.int8_eval": cfg.train.int8_eval,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
 def class_embeddings(cfg: Config, num_classes: int) -> np.ndarray:
@@ -373,7 +375,6 @@ class GMMNTrainer:
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
                  saver: Optional[Saver] = None):
         device = resolve_device(device)
-        refuse_unported(cfg)
         self.train_loader, self.val_loader, num_classes = make_data_loader(
             cfg.data, pin_memory=device.type == "cuda")
         if cfg.model.num_classes != num_classes:
@@ -397,11 +398,17 @@ class GMMNTrainer:
         # Distinct streams from one seed: trunk init (seed), generator
         # init (seed + 1), the step's draws (seed + 2).
         self.generator = init_gmmn(build_gmmn(cfg.gmmn), cfg.train.seed + 1).to(device)
+        self._int8_scales: Optional[quant.Scales] = None
         self.step = ZS3Step(
             self.model, self.generator, extract_classifier(self.model),
             self.embeddings, unseen_mask.to(device), cfg, seed=cfg.train.seed + 2,
+            int8_scales=self.trunk_int8_scales() if cfg.train.int8_features else None,
         )
-        self.eval_fn = make_zs3_eval_step(num_classes, cfg.data.ignore_index, cfg.train)
+        # Validation runs int8 under int8_features too: the classifier was
+        # trained on int8 features, and a float trunk is one it never saw.
+        int8_eval = cfg.train.int8_eval or cfg.train.int8_features
+        self.eval_fn = make_zs3_eval_step(num_classes, cfg.data.ignore_index, cfg.train,
+                                          self.trunk_int8_scales() if int8_eval else None)
         self.steps_per_epoch = cfg.train.steps_per_epoch or len(self.train_loader)
         self.global_step = 0  # ZS3 steps taken (zs3_tpu's gen_state.step)
         self.best_hiou = 0.0
@@ -414,6 +421,16 @@ class GMMNTrainer:
                                     cfg.train.checkname + self.checkpoint_suffix, cfg,
                                     keep=cfg.train.keep_checkpoints)
         self.logger = MetricLogger(self.saver.directory)
+
+    def trunk_int8_scales(self) -> quant.Scales:
+        """The frozen trunk's int8 scales (forward_features: the classifier,
+        the retrained head, stays float), calibrated once on the first 2 val
+        batches; shared by int8_features and int8 validation."""
+        if self._int8_scales is None:
+            self._int8_scales = calibrate_on_val(
+                self.model, self.val_loader, self.device, self.cfg.train.int8_percentile,
+                forward=lambda model, x: model.forward_features(x))
+        return self._int8_scales
 
     def checkpoint_payload(self) -> Dict:
         """Generator, classifier, both Adam states and the step."""

@@ -6,20 +6,24 @@ fixed-size forward, resize predictions back to native resolution, write
 raw label PNGs and colorized panels.  uint8 images go to the device and
 are normalized there; labels are the first maximum of the forward's f32
 logits, as jnp.argmax takes it.  With `model.fused_tail` the forward's
-classify+upsample runs on kernel K4 on the GPU.  Entry points run on the
-GPU unless `device="cpu"` is given.
+classify+upsample runs on kernel K4 on the GPU.  After `quantize`
+(int8 PTQ calibrated on representative images) every forward runs its
+eligible convs as int8.  Entry points run on the GPU unless
+`device="cpu"` is given.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from PIL import Image
 
+from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.config import Config
 from zs3_tpu_torch.core.device import resolve_device
 from zs3_tpu_torch.data.transforms import (
@@ -61,17 +65,50 @@ class Predictor:
             cfg = cfg.replace(train=dataclasses.replace(cfg.train, resume=checkpoint))
         self.cfg = cfg
         self.model = build_eval_model(cfg, self.device)
+        self._scales: Optional[quant.Scales] = None  # int8 input absmaxes, from quantize()
 
-    def quantize(self, calib_images: Iterable[np.ndarray], *args, **kwargs) -> int:
-        raise NotImplementedError(
-            "int8 PTQ inference is not ported yet: see ROADMAP Queue 1, Quantization"
-        )
+    def _forward(self, model, images: torch.Tensor) -> torch.Tensor:
+        return model(batched_normalize_device(images))
+
+    def quantize(
+        self,
+        calib_images: Iterable[np.ndarray],
+        calib_batch: int = 8,
+        max_batches: int = 4,
+        percentile: Optional[float] = None,
+    ) -> int:
+        """Calibrate int8 activation scales on representative uint8 HWC
+        images (any sizes: letterboxed as inference inputs are) and run
+        every later forward int8.  At most calib_batch * max_batches images
+        are used (a larger set warns); a short last batch is filled with
+        copies of its first image.  `percentile` (e.g. 99.99) calibrates to
+        that percentile of |conv input| instead of its max.  Returns the
+        number of quantized convs."""
+        size = self.cfg.data.crop_size
+        calib_images = list(calib_images)
+        cap = calib_batch * max_batches
+        if len(calib_images) > cap:
+            warnings.warn(f"quantize(): using the first {cap} of {len(calib_images)} "
+                          "calibration images (raise max_batches to use more)", stacklevel=2)
+            calib_images = calib_images[:cap]
+        canvases = [letterbox_image(img, size)[0] for img in calib_images]
+        if not canvases:
+            raise ValueError("quantize() needs at least one image")
+        batches = []
+        for i in range(0, len(canvases), calib_batch):
+            chunk = canvases[i:i + calib_batch]
+            chunk += [chunk[0]] * (calib_batch - len(chunk))  # one batch shape
+            batches.append(torch.from_numpy(np.stack(chunk)).to(self.device))
+        self._scales = quant.calibrate(self.model, batches, forward=self._forward,
+                                       percentile=percentile)
+        return len(self._scales)
 
     @torch.inference_mode()
     def _logits(self, images: np.ndarray) -> torch.Tensor:
-        """(N, S, S, 3) uint8 -> (N, S, S, K) f32 logits on the device."""
+        """(N, S, S, 3) uint8 -> (N, S, S, K) f32 logits on the device, from
+        int8 convs once `quantize` has run."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        return self.model(batched_normalize_device(x)).float()
+        return quant.under(self._scales, self._forward)(self.model, x).float()
 
     @torch.inference_mode()
     def _predict(self, images: np.ndarray) -> np.ndarray:

@@ -16,7 +16,10 @@ model's bf16 or f32 logits as they are; the plain version, in f32, on
 the CPU) -> confusion matrix, so the full-resolution logits never reach
 device memory.  With `train.eval_scales != (1.0,)`
 or `train.eval_flip`, `select_eval_step` gives the ms+flip TTA step
-(metrics/tta.py) instead.
+(metrics/tta.py) instead.  With `train.int8_eval` the step runs under
+quant.quantized(scales), calibrated once on the first 2 val batches
+(`calibrate_on_val`); with `train.qat` the train step's convs run on
+fake-quantized operands (quant.qat()).
 
 `SeenTrainer` drives training, validation and checkpoints (Saver) as
 zs3_tpu's does; `evaluate` is `SeenTrainer(cfg).validate(epoch=0)`, the
@@ -25,6 +28,7 @@ zs3_tpu's does; `evaluate` is `SeenTrainer(cfg).validate(epoch=0)`, the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -33,6 +37,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.config import Config, TrainConfig
 from zs3_tpu_torch.core.device import resolve_device
 from zs3_tpu_torch.data.loader import make_data_loader
@@ -92,15 +97,12 @@ def make_train_step(
     optimizer update of `model` on the batch (the effective batch when
     grad_accum > 1).  The gradients stay in the parameters' .grad.  With
     `device_preprocess` the batch's images are uint8, normalized and
-    flipped in the step (preprocess_on_device)."""
+    flipped in the step (preprocess_on_device).  With `qat` the forwards
+    and backwards run under quant.qat() (zs3_tpu's QAT train step)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if loss_at not in ("full", "feature"):
         raise ValueError(f"loss_at must be 'full' or 'feature', got {loss_at!r}")
-    if qat:
-        raise NotImplementedError("train.qat (quantization-aware training) is not ported "
-                                  "yet: see ROADMAP Queue 1, Quantization")
-
     def micro_loss(model: DeepLab, images: torch.Tensor, labels: torch.Tensor):
         if loss_at == "feature":
             # The loss at the os4 grid: the full-resolution logits never exist.
@@ -119,10 +121,11 @@ def make_train_step(
         set_dropout_generator(model, step_generator(seed, optimizer.step, images.device))
         optimizer.zero_grad()
         loss_sum = None
-        for mb_images, mb_labels in zip(images.chunk(grad_accum), labels.chunk(grad_accum)):
-            loss = micro_loss(model, mb_images, mb_labels)
-            loss.backward()
-            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        with quant.qat() if qat else contextlib.nullcontext():
+            for mb_images, mb_labels in zip(images.chunk(grad_accum), labels.chunk(grad_accum)):
+                loss = micro_loss(model, mb_images, mb_labels)
+                loss.backward()
+                loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
         if grad_accum > 1:
             torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
                                 grad_accum)
@@ -147,21 +150,23 @@ def make_eval_step(
 
 
 def select_eval_step(
-    num_classes: int, ignore_index: int, train_cfg: TrainConfig
+    num_classes: int, ignore_index: int, train_cfg: TrainConfig,
+    scales: Optional[quant.Scales] = None,
 ) -> Callable[[DeepLab, Batch], torch.Tensor]:
     """The eval step `train_cfg` asks for: ms+flip TTA when eval_scales or
-    eval_flip depart from single-scale, else the K1 eval step.  int8
-    evaluation is refused, not run in float."""
-    if train_cfg.int8_eval:
-        raise NotImplementedError(
-            "train.int8_eval (int8 PTQ evaluation) is not ported yet: "
-            "see ROADMAP Queue 1, Quantization"
-        )
+    eval_flip depart from single-scale, else the K1 eval step; run under
+    quant.quantized(scales) when int8 scales are given.  int8_eval needs
+    them: it never runs in float."""
+    if train_cfg.int8_eval and scales is None:
+        raise ValueError("train.int8_eval: pass the calibrated int8 scales "
+                         "(calibrate_on_val)")
     if tuple(train_cfg.eval_scales) != (1.0,) or train_cfg.eval_flip:
-        return make_tta_eval_step(
+        step = make_tta_eval_step(
             num_classes, ignore_index, train_cfg.eval_scales, train_cfg.eval_flip
         )
-    return make_eval_step(num_classes, ignore_index)
+    else:
+        step = make_eval_step(num_classes, ignore_index)
+    return quant.under(scales, step)
 
 
 def device_batch(batch: Mapping[str, Any], device: torch.device) -> Batch:
@@ -175,6 +180,17 @@ def device_batch(batch: Mapping[str, Any], device: torch.device) -> Batch:
     }
 
 
+def calibrate_on_val(
+    model: DeepLab, val_loader, device: torch.device, percentile: Optional[float] = None,
+    forward: Optional[Callable] = None,
+) -> quant.Scales:
+    """int8 scales of `model` (in eval mode) from the first 2 val batches,
+    as zs3_tpu's trainers calibrate (quant.calibrate_from_batches)."""
+    images = (device_batch(b, device)["image"] for b in val_loader)
+    return quant.calibrate_from_batches(model.eval(), images, forward=forward,
+                                        percentile=percentile)
+
+
 def validate(
     model: DeepLab,
     val_loader,
@@ -182,13 +198,16 @@ def validate(
     data_cfg,
     device: Union[str, torch.device] = "cuda",
     train_cfg: TrainConfig = TrainConfig(),
+    scales: Optional[quant.Scales] = None,
 ) -> Dict[str, float]:
     """Run the eval step `train_cfg` selects over `val_loader`; returns the
     MetricReport dict (with seen/unseen/harmonic mIoU when unseen classes
-    are set)."""
+    are set).  int8_eval without `scales` calibrates on the val set."""
     device = resolve_device(device)
+    if train_cfg.int8_eval and scales is None:
+        scales = calibrate_on_val(model, val_loader, device, train_cfg.int8_percentile)
     evaluator = Evaluator(num_classes, data_cfg.ignore_index, data_cfg.unseen_classes)
-    eval_step = select_eval_step(num_classes, data_cfg.ignore_index, train_cfg)
+    eval_step = select_eval_step(num_classes, data_cfg.ignore_index, train_cfg, scales)
     model.eval()
     for batch in val_loader:
         evaluator.add_confusion(eval_step(model, device_batch(batch, device)))
@@ -225,7 +244,6 @@ class SeenTrainer:
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
                  saver: Optional[Saver] = None):
         device = resolve_device(device)
-        select_eval_step(1, cfg.data.ignore_index, cfg.train)  # refuses before any work
         self.train_loader, self.val_loader, num_classes = make_data_loader(
             cfg.data, pin_memory=device.type == "cuda")
         if cfg.model.num_classes != num_classes:
@@ -247,7 +265,7 @@ class SeenTrainer:
                 cache_path=cache).to(device)
         self.loss_fn = build_seg_loss(cfg.optim.loss_type, cfg.data.ignore_index,
                                       class_weights)
-        self.train_step = make_train_step(  # refuses qat
+        self.train_step = make_train_step(
             self.loss_fn, cfg.optim.loss_at, cfg.train.grad_accum, cfg.train.seed,
             cfg.data.device_preprocess, cfg.train.qat,
         )
@@ -256,6 +274,7 @@ class SeenTrainer:
         self.steps_per_epoch = cfg.train.steps_per_epoch or len(self.train_loader)
         self.optimizer = SegOptimizer(self.model, cfg, self.steps_per_epoch * cfg.train.epochs)
         self.best_metric = 0.0
+        self._int8_scales: Optional[quant.Scales] = None
         if cfg.train.resume:
             payload = Saver.restore(cfg.train.resume)
             self.model.load_state_dict(model_state_dict(payload))
@@ -297,13 +316,23 @@ class SeenTrainer:
         self.history.append(stats)
         return stats
 
+    def int8_scales(self) -> Optional[quant.Scales]:
+        """With train.int8_eval, the scales of the first validation's model
+        (first 2 val batches), kept for the trainer's lifetime as zs3_tpu
+        keeps them; else None."""
+        if self.cfg.train.int8_eval and self._int8_scales is None:
+            self._int8_scales = calibrate_on_val(self.model, self.val_loader, self.device,
+                                                 self.cfg.train.int8_percentile)
+        return self._int8_scales
+
     def validate(self, epoch: int) -> Dict[str, float]:
         """Metrics over the val set; writes a checkpoint, `best` when the
-        mIoU improved."""
+        mIoU improved.  Under int8_eval the panels show the int8 model too."""
+        scales = self.int8_scales()
         report = validate(self.model, self.val_loader, self.num_classes, self.cfg.data,
-                          self.device, self.cfg.train)
+                          self.device, self.cfg.train, scales)
         if self.cfg.train.tensorboard:
-            self._log_panels(next(iter(self.val_loader)))
+            quant.under(scales, self._log_panels)(next(iter(self.val_loader)))
         self.logger.log(self.step, report, prefix="val")
         metric = report["miou"]
         is_best = metric > self.best_metric

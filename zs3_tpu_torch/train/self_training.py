@@ -21,11 +21,13 @@ before `finfo(float32).min` fills the disallowed classes, since that value
 is -inf in bf16 and K1 multiplies zero tap weights by it.  Without a
 confidence threshold the labels come from `predict_labels` (kernel K1 on
 the GPU, its plain version on the CPU); with one, from a plain resize,
-argmax and softmax, as in zs3_tpu.
+argmax and softmax, as in zs3_tpu.  Under `train.int8_features` the
+labelling forward runs int8, with the trunk scales of the ZS3 step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.config import Config
 from zs3_tpu_torch.data.transforms import letterbox_image, normalize, unletterbox_pred
 from zs3_tpu_torch.models.deeplab import DeepLab
@@ -194,8 +197,13 @@ class ZS5Trainer(GMMNTrainer):
         # splice_classifier writes into self.model in place; the step's
         # features() stops before the classifier, so it reads nothing of it.
         model = splice_classifier(self.model, self.step.cls)
-        return generate_pseudo_labels(
-            model, _gt_view(self.train_loader.dataset), self.unseen, self.pseudo_dir,
-            size=self.cfg.data.crop_size, ignore_index=self.cfg.data.ignore_index,
-            confidence=self.cfg.gmmn.pseudo_confidence,
-        )
+        # Under int8_features the labelling forward runs int8 too (the
+        # retrained classifier stays float by the exclusion rule).
+        int8 = (quant.quantized(self.trunk_int8_scales()) if self.cfg.train.int8_features
+                else contextlib.nullcontext())
+        with int8:
+            return generate_pseudo_labels(
+                model, _gt_view(self.train_loader.dataset), self.unseen, self.pseudo_dir,
+                size=self.cfg.data.crop_size, ignore_index=self.cfg.data.ignore_index,
+                confidence=self.cfg.gmmn.pseudo_confidence,
+            )

@@ -12,14 +12,17 @@ and returns the state_dict of zs3_tpu_torch.models.deeplab.DeepLab:
     torchvision and oracle names (backbone.layer1.0.conv1.weight, ...).
 
 `gmmn_state_dict_from_flax` does the same for the GMMN generator's
-Dense params.
+Dense params, and `scales_from_flax` for an int8 calibration: zs3_tpu's
+conv paths (``encoder/layer1_block0/conv1/conv``) become the port's conv
+names (``backbone.layer1.0.conv1``), the ones its `quant_path` holds.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,3 +123,19 @@ def gmmn_state_dict_from_flax(params: Mapping[str, Mapping]) -> "OrderedDict[str
         else:
             out[f"{path[0]}.bias"] = torch.from_numpy(arr.copy())
     return OrderedDict(sorted(out.items()))
+
+
+def scales_from_flax(scales: Union[str, Mapping[Any, float]]) -> Dict[str, float]:
+    """A zs3_tpu int8 calibration -> the port's: {conv name: input absmax}.
+
+    `scales` maps zs3_tpu conv module paths (tuples, or 'a/b/c' strings) to
+    absmaxes, or is the JSON text of zs3_tpu.quant.scales_to_json.  A conv's
+    path is its kernel's param path short of the leaf, so it maps as the
+    kernel does."""
+    if isinstance(scales, str):
+        scales = json.loads(scales)
+    out = {}
+    for path, value in scales.items():
+        key = tuple(path.split("/")) if isinstance(path, str) else tuple(path)
+        out[_module_name(key)] = float(value)
+    return out
