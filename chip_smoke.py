@@ -66,6 +66,18 @@ just after:
     once per batched forward); `train-seen --qat` (3 steps);
     `train-gmmn --int8-features` (2 steps, K2/K3, an int8 validation);
     and the route's time on three shapes against cuDNN's bf16 conv.
+  * backbones: Xception-65 and MobileNetV2 at os16 and DRN-D-54 (os8 by
+    nature), each at 513x513, bf16, full depth: `evaluate` (K1 per eval
+    batch, held against its plain version), `train-seen` (3 steps at
+    batch 8, a checkpoint), from it `train-gmmn` (2 steps: K2 6 and K3 4
+    launches, held against their plain versions on the step's inputs) and
+    `evaluate-gmmn`, `serve --fused-tail` (8 requests, K4's logits against
+    the standard tail), `profile --mode fwd|train`, `convert-weights` of
+    the trained backbone's keys (equal tensors back), an f32 TF32-off
+    65x65 forward on the card against the port on the CPU, MobileNetV2's
+    `evaluate --int8` (depthwise convs float); every distinct depthwise
+    conv in channels_last against contiguous_format, DRN's 7x7 stem, and
+    DRN's os8 ASPP through space-to-batch against cuDNN's conv.
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
@@ -3676,6 +3688,417 @@ def phase_int8():
     emit(phase=phase, seconds=time.time() - t_phase, ok=True)
 
 
+# The backbones phase: Xception-65 and MobileNetV2 at os16, DRN-D-54 (os8
+# by nature), each at full width (513x513, bf16, full depth, 21 classes,
+# unseen split 2) through every path.
+BACKBONES = (("xception", 16), ("mobilenet", 16), ("drn", 8))
+BB_SEEN_STEPS = 3
+BB_ZS3_STEPS = 2
+BB_BATCH = 8
+
+
+def bb_args(backbone: str, output_stride: int):
+    """(flags every subcommand takes, checkpoint flags) of one backbone."""
+    common = ["--dataset", "synthetic", "--backbone", backbone, "--out-stride",
+              str(output_stride), "--crop-size", "513", "--base-size", "513",
+              "--compute-dtype", "bfloat16", "--unseen-split", "2", "--seed", "0",
+              "--eval-batch-size", "4", "--device", "cuda"]
+    return common, ["--checkpoint-dir", CKPT_DIR, "--checkname", f"bb-{backbone}"]
+
+
+def run_path(phase: str, argv, want):
+    """cli.run(argv) with the launch counts set to 0 just before and read
+    just after; `want(obj)` gives the counts the path must launch.
+    Returns (result, the object it ran, launches, int8 launches, seconds)."""
+    from zs3_tpu_torch import cli, quant
+
+    reset_counts()
+    t0 = time.time()
+    result, obj = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, int8 = read_counts(), quant.int8_conv.launches
+    expected = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, **want(obj)}
+    check(launches == expected, phase, f"{argv[0]}: launches {launches}, expected {expected}")
+    return result, obj, launches, int8, wall
+
+
+def depthwise_shapes(model, x):
+    """The distinct grouped convs one eval forward of `model` runs on x:
+    (C, H, W, stride, dilation) of their inputs."""
+    from zs3_tpu_torch.models.layers import Conv
+
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.setdefault(
+            (m.in_channels, *args[0].shape[2:], m.stride[0], m.dilation[0]), None))
+        for m in model.modules() if isinstance(m, Conv) and m.groups > 1]
+    try:
+        with torch.inference_mode():
+            model.forward_features(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted(seen)
+
+
+def conv_layouts_ms(x, w, stride, padding, dilation, groups, phase, what):
+    """One bf16 conv in channels_last and in contiguous_format (device ms,
+    CUDA events), its least time from its bytes (input, weight and output
+    once each over HBM), and the slower layout's ratio to each."""
+    import torch.nn.functional as F
+
+    out = {}
+    for layout, fmt in (("channels_last", torch.channels_last),
+                        ("contiguous", torch.contiguous_format)):
+        xl = x.contiguous(memory_format=fmt)
+        out[f"{layout}_ms"] = time_ms(
+            lambda: F.conv2d(xl, w, None, stride, padding, dilation, groups), reps=10,
+            rounds=3, what=f"{phase} {what} {layout}")
+    y = F.conv2d(x, w, None, stride, padding, dilation, groups)
+    moved = (x.numel() + w.numel() + y.numel()) * x.element_size()
+    out["bytes_bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
+    out["cl_over_contiguous"] = out["channels_last_ms"] / out["contiguous_ms"]
+    out["cl_over_bound"] = out["channels_last_ms"] / out["bytes_bound_ms"]
+    return out
+
+
+def depthwise_routes_ms(c, h, w, d, phase):
+    """A dilated depthwise 3x3 conv ("same", stride 1) at batch 8 in bf16,
+    forward and forward + backward: cuDNN on the channels_last input, cuDNN
+    on a contiguous_format copy (converted back), and space-to-batch
+    (models/layers.py, the route Conv takes for it).  Space-to-batch is
+    also held against cuDNN's conv in f32 with TF32 off."""
+    import torch.nn.functional as F
+
+    from zs3_tpu_torch.models.layers import conv2d_space_to_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x32 = torch.randn((BB_BATCH, c, h, w), device="cuda", generator=gen)
+    x32 = x32.contiguous(memory_format=torch.channels_last)
+    w32 = torch.randn((c, 1, 3, 3), device="cuda", generator=gen)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = F.conv2d(x32, w32, None, 1, d, d, c)
+        err = float((conv2d_space_to_batch(x32, w32, None, d, c) - want).abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    check(err <= 1e-5 * float(want.abs().max()), phase,
+          f"depthwise {c}@{h} d{d}: space-to-batch off cuDNN's conv by {err}")
+    x, wt = x32.bfloat16(), w32.bfloat16()
+    routes = {
+        "cudnn_channels_last": lambda a: F.conv2d(a, wt, None, 1, d, d, c),
+        "cudnn_contiguous": lambda a: F.conv2d(a.contiguous(), wt, None, 1, d, d, c)
+        .contiguous(memory_format=torch.channels_last),
+        "space_to_batch": lambda a: conv2d_space_to_batch(a, wt, None, d, c),
+    }
+    out = {"max_abs_err_f32": err}
+    g = torch.randn_like(x)
+    xg = x.detach().requires_grad_()
+    for name, fn in routes.items():
+        out[f"{name}_ms"] = time_ms(lambda: fn(x), reps=10, rounds=3, what=f"{name} fwd")
+        out[f"{name}_fwd_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(fn(xg), xg, g), reps=10, rounds=3,
+            what=f"{name} fwd+bwd")
+    return out
+
+
+def backbone_cpu_check(backbone, output_stride, phase):
+    """The backbone's DeepLab in f32 at 65x65 (seeded weights, random BN
+    statistics), TF32 off, on the card against the port on the CPU: the
+    backbone's two maps and the logits within 1e-3 of their largest
+    value (a wrong grouped or dilated cuDNN path is off by its size)."""
+    import copy
+
+    from zs3_tpu_torch.models.deeplab import DeepLab, init_deeplab
+    from zs3_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(11)
+    model = init_deeplab(DeepLab(backbone=backbone, output_stride=output_stride,
+                                 num_classes=21, dropout=False), 0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.copy_(1.0 + 0.2 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
+    model.eval()
+    card = copy.deepcopy(model).to("cuda", memory_format=torch.channels_last)
+    x = torch.randn((2, 65, 65, 3), generator=gen)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = (*model.backbone(x), model(x))
+            got = (*card.backbone(x.cuda()), card(x.cuda()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    errors = {}
+    for name, a, b in zip(("high", "low", "logits"), got, want):
+        err = float((a.float().cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        check(err <= 1e-3 * scale, phase, f"f32 65x65 {name}: card off the CPU by {err} "
+                                          f"(largest value {scale})")
+        errors[name] = {"max_abs_err": err, "max_abs": scale}
+    return errors
+
+
+def phase_backbone(backbone: str, output_stride: int):
+    """One backbone through every path at full width: `evaluate` (K1 on
+    each eval batch, held against its plain version), `train-seen` (3 steps
+    at batch 8, a checkpoint), from it `train-gmmn` (2 steps, K2/K3 held
+    against their plain versions on the step's inputs) and `evaluate-gmmn`,
+    `serve --fused-tail --serve-batch 8` (8 requests, K4's logits against
+    the standard tail), `profile --mode fwd` and `--mode train`,
+    `convert-weights` of the trained backbone's keys, the f32 card-vs-CPU
+    forward; with `int8`, `evaluate --int8` too.  Returns the launches per
+    path."""
+    import numpy as np
+
+    from zs3_tpu_torch.data.transforms import letterbox_image
+    from zs3_tpu_torch.ops import eval_kernels
+    from zs3_tpu_torch.serve import InferenceServer
+    from zs3_tpu_torch.train.seen import device_batch, make_eval_step
+    from zs3_tpu_torch.utils.profiling import profile_device
+    from zs3_tpu_torch.utils.saver import Saver
+
+    phase = f"backbones {backbone}"
+    common, ckpt = bb_args(backbone, output_stride)
+    launches, numbers = {}, {}
+    cuda = torch.device("cuda")
+
+    # evaluate: one K1 launch per eval batch.
+    result, trainer, launches["evaluate"], _, wall = run_path(
+        phase, ["evaluate", *common, *ckpt], lambda t: {"K1": len(t.val_loader)})
+    check(all(is_finite(v) for v in result.values()), phase, f"evaluate gave {result}")
+    model, num_classes = trainer.model, trainer.num_classes
+    batches = [device_batch(b, cuda) for b in trainer.val_loader]
+    with torch.inference_mode():
+        first = batches[0]["image"]
+        logits = model.classify(model.forward_features(first)).contiguous()
+        size = tuple(first.shape[1:3])
+        got = eval_kernels.upsample_argmax(logits, size)
+        want = eval_kernels.upsample_argmax_reference(logits, size)
+    ties, _ = compare_labels(got, want, logits, size, phase, "K1 on the model's bf16 logits")
+    step = make_eval_step(num_classes, 255)
+
+    def one_pass():
+        for batch in batches:
+            step(model, batch)
+
+    per_pass = sum(int(b["image"].shape[0]) for b in batches)
+    passes_per_sec, _ = rate_windows(one_pass, calls=2, windows=3)
+    prof = profile_device(one_pass, steps=1)
+    numbers["eval"] = {"images_per_sec": per_pass * passes_per_sec,
+                       "device_ms_per_image": prof["device_busy_ms"] / per_pass,
+                       "k1_near_ties": ties, "metrics": result, "wall_seconds": wall}
+    shapes = depthwise_shapes(model, torch.randn((BB_BATCH, 513, 513, 3), device=cuda))
+    del trainer, model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train-seen: 3 steps at batch 8, no validation, the final state saved.
+    seen_argv = ["train-seen", *common, *ckpt, "--batch-size", str(BB_BATCH), "--epochs", "1",
+                 "--steps-per-epoch", str(BB_SEEN_STEPS), "--no-val"]
+    result, trainer, launches["train_seen"], _, wall = run_path(phase, seen_argv, lambda t: {})
+    check(trainer.step == BB_SEEN_STEPS and is_finite(result["train_loss"]), phase,
+          f"train-seen: {trainer.step} steps, {result}")
+    seen_ckpt = Saver.latest_checkpoint(trainer.saver.directory)
+    check(seen_ckpt is not None, phase, "train-seen wrote no checkpoint")
+    batch = device_batch(next(iter(trainer.train_loader)), cuda)
+
+    def seen_step():
+        trainer.train_step(trainer.model, trainer.optimizer, batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_per_sec, _ = rate_windows(seen_step, calls=4, windows=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_device(seen_step, steps=2)
+    numbers["seen"] = {"steps_per_sec": steps_per_sec,
+                       "device_ms_per_step": prof["device_busy_ms"] / 2,
+                       "peak_mem_gib": peak, "train_loss": result["train_loss"],
+                       "wall_seconds": wall}
+    backbone_state = {k: v.detach().cpu() for k, v in trainer.model.backbone.state_dict().items()}
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train-gmmn from that checkpoint, then evaluate-gmmn from its own.
+    zs3_argv = ["train-gmmn", *common, *ckpt, "--resume", seen_ckpt, "--batch-size",
+                str(BB_BATCH), "--epochs", "1", "--steps-per-epoch", str(BB_ZS3_STEPS), "--no-val"]
+    result, trainer, launches["train_gmmn"], _, wall = run_path(
+        phase, zs3_argv, lambda t: {"K2": 3 * BB_ZS3_STEPS, "K3": 2 * BB_ZS3_STEPS})
+    check(result["mmd"] > 0 and is_finite(result["mmd"]), phase, f"train-gmmn gave {result}")
+    mmd_errors = check_k2_k3(*step_mmd_inputs(trainer), f"{backbone} step")
+    zs3_batch = device_batch(next(iter(trainer.train_loader)), cuda)
+    counter = itertools.count(trainer.global_step)
+    prof = profile_device(lambda: trainer.step(zs3_batch, step=next(counter)), steps=2)
+    numbers["zs3"] = {"device_ms_per_step": prof["device_busy_ms"] / 2, "mmd": result["mmd"],
+                      "k2_k3_errors": mmd_errors, "wall_seconds": wall}
+    gmmn_ckpt = Saver.latest_checkpoint(trainer.saver.directory)
+    del trainer, zs3_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    result, _, launches["evaluate_gmmn"], _, _ = run_path(
+        phase, ["evaluate-gmmn", *common, *ckpt, "--resume", seen_ckpt, "--gmmn-resume",
+                gmmn_ckpt], lambda t: {"K1": len(t.val_loader)})
+    check({"seen_miou", "unseen_miou", "harmonic_miou"} <= result.keys(), phase,
+          f"evaluate-gmmn gave {result}")
+    numbers["evaluate_gmmn"] = result
+
+    # serve: 8 concurrent requests on the trained model, K4 once per
+    # batched forward (the warmup's too).
+    from zs3_tpu_torch import cli
+
+    serve_argv = ["serve", *common, "--resume", seen_ckpt, "--fused-tail", "--serve-batch",
+                  str(SERVE_BATCH), "--port", "0"]
+    cfg = cli.build_config(cli.make_parser().parse_args(serve_argv))
+    images = voc_like_images(6, SERVE_BATCH)
+    reset_counts()
+    server = InferenceServer(cfg, port=0, serve_batch=SERVE_BATCH, device="cuda").start(
+        warmup=True)
+    try:
+        with ThreadPoolExecutor(SERVE_BATCH) as pool:
+            answers = list(pool.map(lambda img: post(server.port, png_bytes(img)), images))
+        torch.cuda.synchronize()
+        launches["serve"] = read_counts()
+        groups = server.service.batcher.groups
+    finally:
+        server.stop()
+    for (status, pred, _), img in zip(answers, images):
+        check(status == 200 and pred.shape == img.shape[:2], phase, f"serve answered {status}")
+    check(launches["serve"] == {"K1": 0, "K2": 0, "K3": 0, "K4": groups, "K5": 0}, phase,
+          f"serve launched {launches['serve']} for {groups} batched forwards")
+    predictor = server.service.predictor
+    canvases = np.stack([letterbox_image(img, 513)[0] for img in images])
+    agree = fused_vs_standard(predictor, canvases, phase)
+    frames = list(canvases)
+    batch_rate, _ = rate_windows(lambda: predictor.predict_batch(frames), calls=2, windows=3)
+    numbers["serve"] = {"fused_vs_standard": agree, "batch_groups": groups,
+                        "predict_batch_images_per_sec": SERVE_BATCH * batch_rate}
+    del server, predictor
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # profile --mode fwd (with a trace and the device time by kernel) and
+    # --mode train.
+    for mode in ("fwd", "train"):
+        trace = []
+        if mode == "fwd":
+            trace = ["--trace-dir", os.path.join(CKPT_DIR, f"{backbone}-trace")]
+        result, _, launches[f"profile_{mode}"], _, _ = run_path(
+            phase, ["profile", *common, *ckpt, "--mode", mode, "--steps", "3",
+                    "--batch-size", str(BB_BATCH), *trace], lambda t: {})
+        check(result["mode"] == mode and result["mean_step_ms"] > 0, phase,
+              f"profile --mode {mode} gave {result}")
+        if trace:
+            attribution = result.pop("device_attribution_per_step")
+            check(attribution["device_busy_ms"] > 0
+                  and os.path.getsize(os.path.join(trace[1], "trace.json")) > 0, phase,
+                  f"profile --trace-dir gave {attribution}")
+            result["device_busy_ms_per_step"] = attribution["device_busy_ms"]
+            result["top_kernels"] = attribution["kernels"][:3]
+        numbers[f"profile_{mode}"] = result
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # convert-weights of the trained backbone's keys (the upstream names).
+    pth = os.path.join(CKPT_DIR, f"{backbone}-upstream.pth")
+    out = os.path.join(CKPT_DIR, f"{backbone}-init.pt")
+    torch.save(backbone_state, pth)
+    result, _, launches["convert_weights"], _, _ = run_path(
+        phase, ["convert-weights", pth, "--output", out, *common, *ckpt], lambda t: {})
+    saved = Saver.restore(out)["model"]
+    check(all(torch.equal(saved[f"backbone.{k}"], v) for k, v in backbone_state.items()),
+          phase, "convert-weights changed a backbone tensor")
+    numbers["convert_weights"] = {"keys": len(backbone_state), "result": result}
+
+    numbers["f32_65x65_card_vs_cpu"] = backbone_cpu_check(backbone, output_stride, phase)
+
+    if backbone == "mobilenet":  # evaluate --int8: the depthwise convs stay float
+        result, trainer, launches["evaluate_int8"], int8, _ = run_path(
+            phase, ["evaluate", *common, *ckpt, "--int8"], lambda t: {"K1": len(t.val_loader)})
+        scales = trainer._int8_scales
+        grouped = [n for n, m in trainer.model.named_modules() if getattr(m, "groups", 1) > 1]
+        eval_batches = len(trainer.val_loader)
+        check(grouped and not set(grouped) & set(scales), phase, "a depthwise conv quantized")
+        check(int8 == eval_batches * len(scales), phase,
+              f"{int8} int8 launches for {eval_batches} batches of {len(scales)} int8 convs")
+        numbers["evaluate_int8"] = {"metrics": result, "int8_convs": len(scales),
+                                    "float_depthwise_convs": len(grouped),
+                                    "int8_conv_launches": int8}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The depthwise convs of this backbone at 513x513, batch 8, bf16, in
+    # both layouts; DRN's 7x7 stem and its os8 ASPP through space-to-batch.
+    timings = {}
+    for c, h, w, s, d in shapes:
+        x = torch.randn((BB_BATCH, c, h, w), device=cuda, dtype=torch.bfloat16)
+        wt = torch.randn((c, 1, 3, 3), device=cuda, dtype=torch.bfloat16)
+        timings[f"dw {c}x{h}x{w} s{s} d{d}"] = conv_layouts_ms(x, wt, s, d, d, c, phase,
+                                                               f"depthwise {c}@{h} d{d}")
+        if d > 1:  # the routes of a dilated depthwise conv
+            timings[f"dw {c}x{h}x{w} s{s} d{d}"]["routes"] = depthwise_routes_ms(c, h, w, d,
+                                                                                 phase)
+    if backbone == "drn":
+        x = torch.randn((BB_BATCH, 3, 513, 513), device=cuda, dtype=torch.bfloat16)
+        wt = torch.randn((16, 3, 7, 7), device=cuda, dtype=torch.bfloat16)
+        timings["stem 7x7 3->16 @513"] = conv_layouts_ms(x, wt, 1, 3, 1, 1, phase, "stem")
+        timings["aspp os8"] = drn_aspp_check(phase)
+    del shapes
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase=phase, launches=launches, **numbers, conv_timings=timings)
+    return launches
+
+
+def drn_aspp_check(phase):
+    """DRN's os8 ASPP branches (3x3, 512 -> 256, d = 12, 24, 36 on the
+    65x65 grid at batch 8) through space-to-batch: f32 with TF32 off
+    against F.conv2d on the card, then both timed in bf16."""
+    import torch.nn.functional as F
+
+    from zs3_tpu_torch.models.layers import conv2d_space_to_batch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((BB_BATCH, 512, 65, 65), device="cuda", generator=gen)
+    x = x.contiguous(memory_format=torch.channels_last)
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for d in (12, 24, 36):
+            w = torch.randn((256, 512, 3, 3), device="cuda", generator=gen) / 48
+            got = conv2d_space_to_batch(x, w, None, d)
+            want = F.conv2d(x, w, None, 1, d, d)
+            err = float((got - want).abs().max())
+            check(err <= 1e-4 * float(want.abs().max()), phase,
+                  f"space-to-batch d={d} off cuDNN's conv by {err}")
+            xb, wb = x.bfloat16(), w.bfloat16().contiguous(memory_format=torch.channels_last)
+            out[f"d{d}"] = {
+                "max_abs_err_f32": err,
+                "space_to_batch_ms": time_ms(lambda: conv2d_space_to_batch(xb, wb, None, d),
+                                             reps=5, rounds=3, what=f"s2b d{d}"),
+                "cudnn_ms": time_ms(lambda: F.conv2d(xb, wb, None, 1, d, d), reps=5, rounds=3,
+                                    what=f"cudnn d{d}"),
+            }
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def phase_backbones():
+    """phase_backbone for each of BACKBONES; returns {backbone: launches}."""
+    out = {}
+    for backbone, output_stride in BACKBONES:
+        out[backbone] = phase_backbone(backbone, output_stride)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3715,6 +4138,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_int8()
+    bb_launches = phase_backbones()
     phase_reference()
     phase_zs3_reference()
     phase_graph_reference()
@@ -3724,6 +4148,10 @@ def main() -> int:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     b4 = timings[(4, 21, "float32")]
     data_launches = lambda k: {path: n[k] for path, n in data["launches"].items()}
+
+    def bb_counts(k):  # {backbone: {path: launches}}, the paths that launched k
+        return {b: {path: n[k] for path, n in paths.items() if n[k]}
+                for b, paths in bb_launches.items()}
     k1_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "host_ms")
     k4 = tail_timings[(SERVE_BATCH, 129, "bfloat16")]
     k4_fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
@@ -3740,6 +4168,7 @@ def main() -> int:
             "launches_train_zs5": zs5_launches[key],
             "launches_graph": graph_launches[key],
             "launches_data": data_launches(key),
+            "launches_backbones": bb_counts(key),
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
@@ -3765,6 +4194,7 @@ def main() -> int:
         "launches_graph": graph_launches["K1"],
         "zs5_pseudo_label": zs5_k1,
         "launches_data": data_launches("K1"),
+        "launches_backbones": bb_counts("K1"),
         "max_abs_err": b4["max_abs_err"],
         "ms": b4["kernel_ms"],
         "plain_ms": b4["plain_ms"],
@@ -3793,6 +4223,7 @@ def main() -> int:
             "launches": serve_launches["K4"],
             "launches_infer": {m: v["launches"]["K4"] for m, v in infer_launches.items()},
             "launches_tta": tta_launches["K4"],
+            "launches_backbones": bb_counts("K4"),
             "max_abs_err": k4["max_abs_err"],
             "max_err_in_tap_ulps": k4["max_err_in_tap_ulps"],
             "ms": k4["kernel_ms"],

@@ -17,6 +17,7 @@ import torch
 from zs3_tpu.ops import pallas_bottleneck as jax_k5
 from zs3_tpu_torch.models.resnet import Bottleneck
 from zs3_tpu_torch.ops import bottleneck, bottleneck_kernels
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(2, 12, 10, 32, 16, 1), (1, 12, 10, 32, 16, 2), (2, 9, 11, 16, 8, 1),
           (1, 33, 33, 64, 32, 4)]

@@ -54,6 +54,7 @@ from zs3_tpu_torch.utils import losses
 
 from tests.test_torch_port_models import LAYERS
 from tests.test_torch_port_seen import _randomize_bn_stats
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SIZES = ((60, 80), (80, 60), (70, 80), (50, 80))
 VOC_UNSEEN = (10, 14)

@@ -25,6 +25,7 @@ from zs3_tpu_torch.data import fabricate
 from zs3_tpu_torch.data.classes import CONTEXT_CLASSES, VOC_CLASSES
 from zs3_tpu_torch.train.self_training import WeakLabelDataset
 from zs3_tpu_torch.utils.saver import Saver
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SIZES = ((60, 80), (80, 60), (70, 80), (50, 80))
 

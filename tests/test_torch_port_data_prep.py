@@ -48,6 +48,7 @@ from zs3_tpu_torch.train.seen import device_batch, make_eval_step
 
 from tests.test_context_prepare import _square_rle
 from tests.test_torch_port_seen import _randomize_bn_stats
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SIZES = ((60, 80), (80, 60), (70, 80), (50, 80))
 

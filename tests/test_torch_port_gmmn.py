@@ -46,6 +46,7 @@ from zs3_tpu_torch.ops import mmd, mmd_kernels
 from zs3_tpu_torch.ops.sampling import downsample_labels, sample_class_pixels
 from zs3_tpu_torch.train import gmmn
 from zs3_tpu_torch.utils.convert import gmmn_state_dict_from_flax
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SIGMAS = mmd.DEFAULT_SIGMAS
 t = torch.from_numpy
@@ -321,28 +322,41 @@ def check_int8_trainer(field):
     from zs3_tpu_torch import quant
     from zs3_tpu_torch.train.seen import device_batch, select_eval_step
 
-    from tests.test_torch_port_quant import one_thread
+    args = cli.make_parser().parse_args(["train-gmmn", *TINY, "--device", "cpu"])
+    cfg = cli.build_config(args)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **{field: True}),
+                      data=dataclasses.replace(cfg.data, eval_batch_size=2))
+    with pytest.warns(UserWarning):
+        trainer = gmmn.GMMNTrainer(cfg, device="cpu")
+    scales = trainer.trunk_int8_scales()
+    assert len(scales) == 61 and not any("classifier" in k for k in scales)
+    batch = device_batch(next(iter(trainer.val_loader)), "cpu")
+    want = select_eval_step(trainer.num_classes, 255, cfg.train, scales)(trainer.model, batch)
+    assert torch.equal(trainer.eval_fn(trainer.model, trainer.step.cls, batch), want)
+    if field == "int8_eval":
+        assert trainer.step.int8_scales is None
+        return
+    assert trainer.step.int8_scales is scales
+    with torch.no_grad(), quant.quantized(scales):
+        feats = trainer.model.forward_features(batch["image"])
+    got, _ = trainer.step.features(batch)
+    assert torch.equal(got, feats.reshape(-1, feats.shape[-1]).float())
 
-    with one_thread():
-        args = cli.make_parser().parse_args(["train-gmmn", *TINY, "--device", "cpu"])
-        cfg = cli.build_config(args)
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **{field: True}),
-                          data=dataclasses.replace(cfg.data, eval_batch_size=2))
-        with pytest.warns(UserWarning):
-            trainer = gmmn.GMMNTrainer(cfg, device="cpu")
-        scales = trainer.trunk_int8_scales()
-        assert len(scales) == 61 and not any("classifier" in k for k in scales)
-        batch = device_batch(next(iter(trainer.val_loader)), "cpu")
-        want = select_eval_step(trainer.num_classes, 255, cfg.train, scales)(trainer.model, batch)
-        assert torch.equal(trainer.eval_fn(trainer.model, trainer.step.cls, batch), want)
-        if field == "int8_eval":
-            assert trainer.step.int8_scales is None
-            return
-        assert trainer.step.int8_scales is scales
-        with torch.no_grad(), quant.quantized(scales):
-            feats = trainer.model.forward_features(batch["image"])
-        got, _ = trainer.step.features(batch)
-        assert torch.equal(got, feats.reshape(-1, feats.shape[-1]).float())
+
+def check_backbone_trainer(backbone):
+    """GMMNTrainer at 33x33 on `backbone`: the trunk is that backbone, and
+    the step's features are its DeepLab's 256-d pixel embeddings."""
+    from zs3_tpu_torch.train.seen import device_batch
+
+    args = cli.make_parser().parse_args(["train-gmmn", *TINY, "--backbone", backbone])
+    with pytest.warns(UserWarning):
+        trainer = gmmn.GMMNTrainer(cli.build_config(args), device="cpu")
+    assert trainer.model.backbone_name == backbone
+    assert type(trainer.model.backbone).__name__ == {
+        "mobilenet": "MobileNetV2Backbone", "drn": "DRN54", "xception": "AlignedXception"}[backbone]
+    batch = device_batch(next(iter(trainer.train_loader)), "cpu")
+    feats, labels = trainer.step.features(batch)
+    assert feats.shape == (batch["image"].shape[0] * 9 * 9, 256) == (labels.shape[0], 256)
 
 
 @pytest.mark.parametrize("change", [
@@ -355,11 +369,15 @@ def check_int8_trainer(field):
 ])
 def test_trainer_refuses_unported_settings(change):
     """Each setting whose path is not ported raises.  The int8 settings
-    were among them until the port had quantization: their cases now
-    check that the trainer runs them (check_int8_trainer)."""
+    and the backbones were among them until the port had quantization and
+    the other backbones: their cases now check that the trainer runs them
+    (check_int8_trainer, check_backbone_trainer)."""
     node, field, value = change
     if field in ("int8_features", "int8_eval"):
         check_int8_trainer(field)
+        return
+    if field == "backbone":
+        check_backbone_trainer(value)
         return
     cfg = Config()
     cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset="synthetic"))

@@ -50,6 +50,7 @@ from zs3_tpu_torch.utils.saver import Saver
 
 from tests.test_torch_port_models import randomize_bn
 from tests.test_torch_port_zs3 import _close_grads, _close_where_signed
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 t = torch.from_numpy
 

@@ -27,6 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import zs3_tpu_torch
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 names = [m.name for m in pkgutil.walk_packages(zs3_tpu_torch.__path__, "zs3_tpu_torch.")
          if not m.name.endswith("__main__")]  # it runs the CLI
 for name in names:
@@ -39,10 +40,12 @@ print(json.dumps({"modules": names, "bad": bad}))
 
 
 def test_port_imports_no_jax_and_no_zs3_tpu():
+    # No clock: the test waits for the process to end, however loaded the
+    # host (the suite's own time limit bounds a hang).
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120, check=True,
+        capture_output=True, text=True, check=True,
     )
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("train.seen", "train.gmmn", "ops.mmd", "ops.mmd_kernels", "ops.sampling",
@@ -51,7 +54,9 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
                  "utils.saver", "utils.schedules", "utils.losses", "utils.logging",
                  "ops.bottleneck", "ops.bottleneck_kernels", "data.voc", "data.sbd",
                  "data.context", "data.fabricate", "data.context_prepare",
-                 "data.embedding_build", "data.loader", "data.transforms"):
+                 "data.embedding_build", "data.loader", "data.transforms",
+                 "models.xception", "models.mobilenet", "models.drn", "utils.convert",
+                 "utils.profiling"):
         assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

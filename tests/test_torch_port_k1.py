@@ -34,6 +34,7 @@ from zs3_tpu_torch.ops.eval_kernels import (
     upsample_argmax_reference,
 )
 from zs3_tpu_torch.ops.resize import resize_bilinear
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 AXES = [(129, 513), (9, 33), (11, 45), (33, 9), (1, 4), (17, 65), (4, 4)]
 

@@ -28,6 +28,7 @@ import torch
 from zs3_tpu.ops.pallas_mmd import _kernel_sum_impl, _prepare
 from zs3_tpu_torch.ops import mmd_kernels
 from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 SIGMAS = DEFAULT_SIGMAS
 MMD_SHAPES = [  # chip_smoke.py's phase_mmd, and the widest D the kernel takes

@@ -27,6 +27,7 @@ from zs3_tpu_torch.models.deeplab import DeepLab
 from zs3_tpu_torch.models.layers import conv2d_space_to_batch
 from zs3_tpu_torch.models.resnet import ResNetAtrous
 from zs3_tpu_torch.utils.convert import state_dict_from_flax
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 LAYERS = (2, 2, 2, 2)
 

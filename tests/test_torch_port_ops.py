@@ -27,6 +27,7 @@ from zs3_tpu_torch.ops.eval_kernels import (
     upsample_argmax_reference,
 )
 from zs3_tpu_torch.ops.resize import _linear_matrix_np, resize_bilinear, resize_nearest
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def near_tie_mask(up: np.ndarray) -> np.ndarray:

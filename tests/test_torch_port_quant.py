@@ -23,8 +23,6 @@ on the CPU; zs3_tpu runs as tests/test_quant.py runs it.
   to the logits, so near-ties of the argmax may differ.
 """
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,31 +37,13 @@ from zs3_tpu_torch.models.deeplab import DeepLab, init_deeplab
 from zs3_tpu_torch.models.layers import Conv
 from zs3_tpu_torch.utils.convert import scales_from_flax
 
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
+
 # zs3_tpu compiled as its ops read: XLA's algebraic simplifier rewrites the
 # int8 grid math's divisions, which moves zs3_tpu's jitted int8 and QAT
 # results off its own op-by-op ones (tests/test_torch_port_quant_paths.py).
 OP_BY_OP = {"xla_disable_hlo_passes": "algsimp"}
 
-
-
-@contextlib.contextmanager
-def one_thread():
-    """torch on one intra-op thread.  The tier-1 run shares the CPU among
-    its workers, and an int8 forward's many small parallel regions then
-    wait on busy cores: a ResNet-50 int8 forward ran 11x slower on 8
-    threads than on one with the other cores busy."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_thread():
-        yield
 
 
 # name: (batch, in channels, height, width, out channels, kernel, stride, padding, dilation)

@@ -62,17 +62,12 @@ from zs3_tpu_torch.utils.convert import (
 )
 
 from tests.test_torch_port_models import LAYERS, TinyJaxDeepLab, randomize_bn
-from tests.test_torch_port_quant import OP_BY_OP, one_thread
+from tests.test_torch_port_quant import OP_BY_OP
 from tests.test_torch_port_seen import TOTAL_STEPS, _batch, _compare, _pair, _randomize_bn_stats
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 N_CLASSES = 21
 UNSEEN = (10, 14)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    with one_thread():
-        yield
 
 
 def _exact_stem(batch):

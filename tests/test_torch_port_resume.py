@@ -14,6 +14,7 @@ import torch
 from zs3_tpu_torch import cli
 from zs3_tpu_torch.train.gmmn import ZS3Step
 from zs3_tpu_torch.utils.saver import Saver
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 TINY = ["train-gmmn", "--dataset", "synthetic", "--crop-size", "33", "--base-size", "33",
         "--backbone", "resnet50", "--compute-dtype", "float32", "--unseen-split", "2",

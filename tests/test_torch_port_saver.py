@@ -17,6 +17,7 @@ from zs3_tpu_torch.core.config import Config, DataConfig, ModelConfig, TrainConf
 from zs3_tpu_torch.train.seen import SeenTrainer
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.saver import Saver
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _cfg(tmp_path, **train):
@@ -155,9 +156,6 @@ def test_cli_train_seen_and_auto_resume(tmp_path):
     assert again.step == 2
     # --qat, refused before the port had quantization: quantization-aware
     # training from the same flags (a fresh run: no --auto-resume).
-    from tests.test_torch_port_quant import one_thread
-
-    with one_thread():
-        qat_result, qat_trainer = cli.run(argv + ["--qat", "--checkname", "qat"])
+    qat_result, qat_trainer = cli.run(argv + ["--qat", "--checkname", "qat"])
     assert qat_trainer.cfg.train.qat and qat_trainer.step == 1
     assert np.isfinite(qat_result["train_loss"])

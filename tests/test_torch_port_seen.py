@@ -49,6 +49,7 @@ from zs3_tpu_torch.utils.convert import state_dict_from_flax
 from zs3_tpu_torch.utils.schedules import build_schedule
 
 from tests.test_torch_port_models import LAYERS, TinyJaxDeepLab
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 NUM_CLASSES = 5
 TOTAL_STEPS = 10

@@ -21,6 +21,7 @@ from tests.test_torch_port_seen import (
     _randomize_bn_stats,
     check_train_step_parity,
 )
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])

@@ -36,6 +36,7 @@ from zs3_tpu_torch.utils import viz
 from zs3_tpu_torch.utils.convert import state_dict_from_flax
 
 from tests.test_torch_port_models import randomize_bn
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 CPU_ARGS = ["--dataset", "synthetic", "--crop-size", "33", "--base-size", "33",
             "--backbone", "resnet50", "--compute-dtype", "float32", "--device", "cpu"]
@@ -138,19 +139,16 @@ def test_predictor_refuses_int8(predictor_pair, rng):
     from zs3_tpu_torch import quant
     from zs3_tpu_torch.data.transforms import batched_normalize_device
 
-    from tests.test_torch_port_quant import one_thread
-
-    with one_thread():
-        ours = Predictor(predictor_pair[1].cfg, checkpoint=predictor_pair[2], device="cpu")
-        with pytest.raises(ValueError, match="at least one image"):
-            ours.quantize([])
-        calib = [_image(rng, *hw) for hw in [(40, 50), (33, 33), (20, 45)]]
-        with pytest.warns(UserWarning, match="first 2 of 3"):
-            assert ours.quantize(calib, calib_batch=1, max_batches=2) == len(ours._scales) == 61
-        canvases = np.stack([_image(rng, 33, 33) for _ in range(2)])
-        with torch.no_grad(), quant.quantized(ours._scales):
-            want = ours.model(batched_normalize_device(torch.from_numpy(canvases))).argmax(-1)
-        np.testing.assert_array_equal(ours._predict(canvases), want.numpy())
+    ours = Predictor(predictor_pair[1].cfg, checkpoint=predictor_pair[2], device="cpu")
+    with pytest.raises(ValueError, match="at least one image"):
+        ours.quantize([])
+    calib = [_image(rng, *hw) for hw in [(40, 50), (33, 33), (20, 45)]]
+    with pytest.warns(UserWarning, match="first 2 of 3"):
+        assert ours.quantize(calib, calib_batch=1, max_batches=2) == len(ours._scales) == 61
+    canvases = np.stack([_image(rng, 33, 33) for _ in range(2)])
+    with torch.no_grad(), quant.quantized(ours._scales):
+        want = ours.model(batched_normalize_device(torch.from_numpy(canvases))).argmax(-1)
+    np.testing.assert_array_equal(ours._predict(canvases), want.numpy())
 
 
 def _cfg(**model):
@@ -169,7 +167,9 @@ def server():
 
 
 def _conn(srv):
-    return http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+    # No clock: a request waits for its response (or the connection's
+    # end), however long a loaded host takes to run the forward.
+    return http.client.HTTPConnection("127.0.0.1", srv.port, timeout=None)
 
 
 def _png(img):
@@ -286,13 +286,10 @@ def test_artifact_and_int8_are_refused(tmp_path, rng):
     for i, hw in enumerate([(40, 50), (33, 33)]):
         paths.append(str(tmp_path / f"c{i}.png"))
         Image.fromarray(_image(rng, *hw)).save(paths[-1])
-    from tests.test_torch_port_quant import one_thread
-
-    with one_thread():
-        service = SegmentationService(_cfg(), int8_calib_images=paths, device="cpu")
-        assert service.int8_convs == len(service.predictor._scales) == 61
-        assert service.info()["int8_convs"] == 61
-        png = service.predict_image(_image(rng, 20, 30))
+    service = SegmentationService(_cfg(), int8_calib_images=paths, device="cpu")
+    assert service.int8_convs == len(service.predictor._scales) == 61
+    assert service.info()["int8_convs"] == 61
+    png = service.predict_image(_image(rng, 20, 30))
     assert Image.open(io.BytesIO(png)).size == (30, 20)
 
 

@@ -28,6 +28,7 @@ from zs3_tpu_torch.train.seen import device_batch, make_eval_step, validate
 from zs3_tpu_torch.utils.convert import state_dict_from_flax
 
 from tests.test_torch_port_models import randomize_bn
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ from zs3_tpu_torch.train.seen import device_batch, evaluate, select_eval_step
 from zs3_tpu_torch.utils.convert import state_dict_from_flax
 
 from tests.test_torch_port_models import LAYERS, TinyJaxDeepLab, randomize_bn
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 def _tail_inputs(seed, bsz, hw, c, k, dtype=np.float32):
@@ -438,21 +439,18 @@ def test_evaluate_refuses_int8_eval(r50_tta):
     first 2 val batches and validates under those scales."""
     from zs3_tpu_torch.train.seen import SeenTrainer, calibrate_on_val
 
-    from tests.test_torch_port_quant import one_thread
-
-    with one_thread():
-        _, _, _, _, cfg = r50_tta
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True, eval_scales=(1.0,),
-                                                    eval_flip=False),
-                          data=dataclasses.replace(cfg.data, eval_batch_size=2))
-        with pytest.raises(ValueError, match="int8_eval"):
-            select_eval_step(21, 255, cfg.train)
-        trainer = SeenTrainer(cfg, device="cpu")
-        report = trainer.validate(epoch=0)
-        scales = trainer.int8_scales()
-        assert len(scales) == 61 and trainer.int8_scales() is scales  # calibrated once
-        assert calibrate_on_val(trainer.model, trainer.val_loader, torch.device("cpu")) == scales
-        assert np.isfinite(report["miou"]) and 0.0 <= report["pixel_accuracy"] <= 1.0
+    _, _, _, _, cfg = r50_tta
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True, eval_scales=(1.0,),
+                                                eval_flip=False),
+                      data=dataclasses.replace(cfg.data, eval_batch_size=2))
+    with pytest.raises(ValueError, match="int8_eval"):
+        select_eval_step(21, 255, cfg.train)
+    trainer = SeenTrainer(cfg, device="cpu")
+    report = trainer.validate(epoch=0)
+    scales = trainer.int8_scales()
+    assert len(scales) == 61 and trainer.int8_scales() is scales  # calibrated once
+    assert calibrate_on_val(trainer.model, trainer.val_loader, torch.device("cpu")) == scales
+    assert np.isfinite(report["miou"]) and 0.0 <= report["pixel_accuracy"] <= 1.0
 
 
 def test_gmmn_trainer_validates_under_tta(r50_tta):
@@ -474,16 +472,13 @@ def test_gmmn_trainer_validates_under_tta(r50_tta):
     # runs under the trunk's scales.
     from zs3_tpu_torch import quant
 
-    from tests.test_torch_port_quant import one_thread
-
-    with one_thread():
-        int8 = GMMNTrainer(cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True),
-                                       data=dataclasses.replace(cfg.data, eval_batch_size=2)),
-                           device="cpu")
-        scales = int8.trunk_int8_scales()
-        batch = {k: v[:2] for k, v in batch.items()}
-        with quant.quantized(scales):
-            want = tta.make_tta_eval_step(int8.num_classes, 255, (0.75, 1.0), True)(
-                int8.model, batch)
-        got = int8.eval_fn(int8.model, int8.step.cls, batch)
+    int8 = GMMNTrainer(cfg.replace(train=dataclasses.replace(cfg.train, int8_eval=True),
+                                   data=dataclasses.replace(cfg.data, eval_batch_size=2)),
+                       device="cpu")
+    scales = int8.trunk_int8_scales()
+    batch = {k: v[:2] for k, v in batch.items()}
+    with quant.quantized(scales):
+        want = tta.make_tta_eval_step(int8.num_classes, 255, (0.75, 1.0), True)(
+            int8.model, batch)
+    got = int8.eval_fn(int8.model, int8.step.cls, batch)
     np.testing.assert_array_equal(got.numpy(), want.numpy())

@@ -16,6 +16,7 @@ from zs3_tpu_torch.train.seen import SeenTrainer, build_eval_model, evaluate, va
 from zs3_tpu_torch.utils.saver import Saver
 
 from tests.test_torch_port_saver import _assert_same, _cfg, _weights
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,7 @@ from zs3_tpu_torch.train.seen import device_batch
 from zs3_tpu_torch.utils.convert import gmmn_state_dict_from_flax, state_dict_from_flax
 
 from tests.test_torch_port_models import randomize_bn
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 t = torch.from_numpy
 

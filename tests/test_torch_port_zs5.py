@@ -40,6 +40,7 @@ from zs3_tpu_torch.utils.saver import Saver
 
 from tests.test_torch_port_graph import EVAL_TINY, TINY, small_config
 from tests.test_torch_port_models import randomize_bn
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

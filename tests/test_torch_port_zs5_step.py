@@ -12,6 +12,7 @@ import pytest
 from zs3_tpu_torch.data.loader import make_train_loader
 
 from tests.test_torch_port_graph import check_step_parity, step_configs
+from tests.torch_port_threads import torch_one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("graph", [False, True])

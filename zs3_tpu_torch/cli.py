@@ -15,6 +15,10 @@
     python -m zs3_tpu_torch.cli train-gmmn --int8-features --unseen-split 2 --resume CKPT
     python -m zs3_tpu_torch.cli prepare-context trainval_merged.json --data-root /data
     python -m zs3_tpu_torch.cli build-embeddings GoogleNews.bin --dataset context --output e.npy
+    python -m zs3_tpu_torch.cli convert-weights xception.pth --backbone xception --output init.pt
+    python -m zs3_tpu_torch.cli train-seen --backbone xception --resume init.pt --ft
+    python -m zs3_tpu_torch.cli show-config --backbone drn --crop-size 321
+    python -m zs3_tpu_torch.cli profile --mode fwd --steps 10 --trace-dir trace
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
@@ -41,7 +45,8 @@ def _add_common(p: argparse.ArgumentParser):
                         "or VOC2010/ for Pascal-Context")
     p.add_argument("--use-sbd", action="store_true", default=None,
                    help="train on VOC2012 + SBD (pascal)")
-    p.add_argument("--backbone", choices=["resnet101", "resnet50"])
+    p.add_argument("--backbone", choices=["resnet101", "resnet50", "xception", "mobilenet",
+                                          "drn"])
     p.add_argument("--out-stride", type=int, choices=[8, 16])
     p.add_argument("--base-size", type=int)
     p.add_argument("--crop-size", type=int)
@@ -170,6 +175,26 @@ def _add_build_embeddings(p: argparse.ArgumentParser):
                    help="keep raw vector norms (default: unit rows)")
     p.add_argument("--alias", action="append", default=[], metavar="NAME=TOKENS",
                    help="extra class-name alias, e.g. 'tvmonitor=television'; repeatable")
+
+
+def _add_profile(p: argparse.ArgumentParser):
+    p.add_argument("--steps", type=int, default=10,
+                   help="steps to time (the first is a warm-up)")
+    p.add_argument("--trace-dir", type=str, default=None,
+                   help="write a torch.profiler trace here (chrome://tracing, Perfetto)")
+    p.add_argument("--mode", default="train", choices=["train", "fwd", "int8-fwd"],
+                   help="what to profile: the seen train step, the eval forward, or the "
+                        "int8 PTQ forward (constant stand-in scales: the throughput is "
+                        "faithful, the accuracy is not)")
+
+
+def _add_convert_weights(p: argparse.ArgumentParser):
+    p.add_argument("pth", help="upstream-named backbone state_dict .pth (torchvision "
+                               "ResNet, or the Xception, MobileNetV2 and DRN namings)")
+    p.add_argument("--output", type=str, required=True,
+                   help="checkpoint file to write (use with --resume --ft)")
+    p.add_argument("--force", action="store_true",
+                   help="replace an existing --output checkpoint")
 
 
 def build_config(args: argparse.Namespace) -> Config:
@@ -304,6 +329,23 @@ def make_parser() -> argparse.ArgumentParser:
     build = sub.add_parser("build-embeddings")
     _add_common(build)
     _add_build_embeddings(build)
+    show = sub.add_parser("show-config")  # every flag that sets a config field
+    _add_common(show)
+    _add_checkpoints(show)
+    _add_schedule(show)
+    _add_train_seen(show)
+    _add_gmmn(show)
+    show.add_argument("--int8-features", action="store_true", default=None)
+    _add_int8_percentile(show)
+    profile = sub.add_parser("profile")
+    _add_common(profile)
+    _add_checkpoints(profile)
+    _add_train_seen(profile)
+    _add_profile(profile)
+    convert = sub.add_parser("convert-weights")
+    _add_common(convert)
+    _add_checkpoints(convert)
+    _add_convert_weights(convert)
     return parser
 
 
@@ -330,11 +372,12 @@ def auto_resume(cfg: Config, command: str) -> Config:
 
 def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     """Run one command without printing: (its result, the object it ran:
-    the SeenTrainer of `train-seen` and `evaluate`, the GMMNTrainer of
-    `train-gmmn` and `evaluate-gmmn`, the ZS5Trainer of `train-zs5`, the
-    Predictor of `infer`, the InferenceServer of `serve` once it stops;
-    None for `prepare-context` and `build-embeddings`, which run on the
-    host alone).
+    the SeenTrainer of `train-seen`, `evaluate` and `profile`, the
+    GMMNTrainer of `train-gmmn` and `evaluate-gmmn`, the ZS5Trainer of
+    `train-zs5`, the Predictor of `infer`, the InferenceServer of `serve`
+    once it stops, the DeepLab of `convert-weights`; None for
+    `show-config`, `prepare-context` and `build-embeddings`, which run on
+    the host alone).  `show-config` returns the config's JSON text.
     `train-zs5` pseudo-labels the train set (the count goes to stderr),
     then trains."""
     args = make_parser().parse_args(argv)
@@ -347,6 +390,14 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     if args.command == "serve" and args.int8 and not args.calib_images:
         raise SystemExit("serve --int8 requires --calib-images")
 
+    if args.command == "show-config":
+        return cfg.to_json(), None
+    if args.command == "profile":
+        from zs3_tpu_torch.utils.profiling import profile_command
+
+        return profile_command(cfg, args.mode, args.steps, args.trace_dir, args.device)
+    if args.command == "convert-weights":
+        return convert_weights(cfg, args.pth, args.output, args.force)
     if args.command in ("train-seen", "evaluate"):
         from zs3_tpu_torch.train.seen import SeenTrainer
 
@@ -419,9 +470,34 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     raise AssertionError(args.command)  # pragma: no cover
 
 
+def convert_weights(cfg: Config, pth: str, output: str, force: bool):
+    """`cli convert-weights`: the model of cfg.model, seeded from
+    cfg.train.seed, with the upstream backbone at `pth` grafted in, saved
+    as a checkpoint that `--resume output --ft` reads."""
+    import os
+
+    import torch
+
+    from zs3_tpu_torch.models.deeplab import build_deeplab, init_deeplab
+    from zs3_tpu_torch.utils.convert import load_pretrained_backbone
+
+    if os.path.exists(output) and not force:
+        raise SystemExit(f"convert-weights: output {output!r} already exists; "
+                         f"pass --force to replace it")
+    model = init_deeplab(build_deeplab(cfg.model), cfg.train.seed)
+    load_pretrained_backbone(model, pth, cfg.model.backbone)
+    directory = os.path.dirname(os.path.abspath(output))
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f".{os.path.basename(output)}.{os.getpid()}")
+    torch.save({"model": model.state_dict(), "step": 0}, tmp)
+    os.replace(tmp, output)
+    return ({"checkpoint": output,
+             "usage": "pass via --resume with --ft for pretrained init"}, model)
+
+
 def main(argv=None) -> int:
     result, _ = run(argv)
-    print(json.dumps(result))
+    print(result if isinstance(result, str) else json.dumps(result))
     return 0
 
 

@@ -13,9 +13,17 @@ return NHWC tensors, as in zs3_tpu:
   classify(feats)        -> logits at the feature grid
   upsample_logits(l, s)  -> align-corners bilinear to size s
 
-The state_dict follows tests/torch_oracle.py: torchvision ResNet keys
-under ``backbone.``, then ``aspp1..4``, ``global_pool``, ``project``,
-``low_proj``, ``fuse1``, ``fuse2`` and ``classifier`` at the top level.
+Backbones, as zs3_tpu builds them: ``resnet101`` (or ``resnet``) and
+``resnet50`` (ResNetAtrous; `layers=` gives narrow test ResNets),
+``xception`` (AlignedXception), ``mobilenet`` (MobileNetV2Backbone) and
+``drn`` (DRN54, natively os8: its ASPP takes the os8 rates whatever
+`output_stride` says).  `remat` reaches the ResNets only, as in zs3_tpu.
+
+The state_dict follows tests/torch_oracle.py: the backbone's upstream
+checkpoint keys under ``backbone.`` (torchvision ResNet, or the names of
+tests/torch_oracle_backbones.py), then ``aspp1..4``, ``global_pool``,
+``project``, ``low_proj``, ``fuse1``, ``fuse2`` and ``classifier`` at the
+top level.
 """
 
 from __future__ import annotations
@@ -29,8 +37,11 @@ import torch.nn as nn
 from zs3_tpu_torch.core.config import ModelConfig
 from zs3_tpu_torch.models.aspp import ASPP
 from zs3_tpu_torch.models.decoder import Decoder
+from zs3_tpu_torch.models.drn import DRN54
 from zs3_tpu_torch.models.layers import BatchNorm, Conv
+from zs3_tpu_torch.models.mobilenet import MobileNetV2Backbone
 from zs3_tpu_torch.models.resnet import ResNetAtrous
+from zs3_tpu_torch.models.xception import AlignedXception
 from zs3_tpu_torch.ops import tail_kernels
 from zs3_tpu_torch.ops.resize import resize_bilinear
 
@@ -39,6 +50,31 @@ RESNET_LAYERS = {
     "resnet101": (3, 4, 23, 3),
     "resnet50": (3, 4, 6, 3),
 }
+# backbone -> (high-level width, low-level width)
+BACKBONE_WIDTHS = {
+    **{name: (2048, 256) for name in RESNET_LAYERS},
+    "xception": (2048, 128),
+    "mobilenet": (320, 24),
+    "drn": (512, 256),
+}
+
+
+def build_backbone(name: str, output_stride: int, bn_kw, dtype: torch.dtype,
+                   layers: Optional[Sequence[int]] = None, remat: bool = False) -> nn.Module:
+    """The backbone `name`; `layers` sets a ResNet's depth (the backbone
+    name's when None)."""
+    if layers is not None and name not in RESNET_LAYERS:
+        raise ValueError(f"layers= sets a ResNet's depth, not {name!r}'s")
+    if name in RESNET_LAYERS:
+        return ResNetAtrous(layers=tuple(layers or RESNET_LAYERS[name]),
+                            output_stride=output_stride, dtype=dtype, remat=remat, **bn_kw)
+    if name == "xception":
+        return AlignedXception(output_stride, dtype=dtype, **bn_kw)
+    if name == "mobilenet":
+        return MobileNetV2Backbone(output_stride, dtype=dtype, **bn_kw)
+    if name == "drn":
+        return DRN54(dtype=dtype, **bn_kw)
+    raise ValueError(f"unknown backbone {name!r}; available: {sorted(BACKBONE_WIDTHS)}")
 
 
 class DeepLab(nn.Module):
@@ -59,23 +95,17 @@ class DeepLab(nn.Module):
     ):
         super().__init__()
         self.fused_tail = fused_tail
-        if layers is None:
-            if backbone not in RESNET_LAYERS:
-                raise NotImplementedError(
-                    f"backbone {backbone!r} is not ported yet; "
-                    f"available: {sorted(RESNET_LAYERS)}"
-                )
-            layers = RESNET_LAYERS[backbone]
+        self.backbone_name = backbone
         bn_kw = dict(bn_momentum=bn_momentum, bn_epsilon=bn_epsilon)
         self.compute_dtype = dtype
         self.num_classes = num_classes
-        self.backbone = ResNetAtrous(
-            layers=tuple(layers), output_stride=output_stride, dtype=dtype, remat=remat,
-            **bn_kw
-        )
-        aspp = ASPP(2048, output_stride, feature_dim, dropout=dropout, dtype=dtype, **bn_kw)
+        self.backbone = build_backbone(backbone, output_stride, bn_kw, dtype, layers, remat)
+        high_ch, low_ch = BACKBONE_WIDTHS[backbone]
+        # DRN feeds the ASPP at os8 whatever the config says.
+        aspp_os = 8 if backbone == "drn" else output_stride
+        aspp = ASPP(high_ch, aspp_os, feature_dim, dropout=dropout, dtype=dtype, **bn_kw)
         decoder = Decoder(
-            num_classes, feature_dim, 256, feature_dim, low_level_dim,
+            num_classes, feature_dim, low_ch, feature_dim, low_level_dim,
             dropout=dropout, dtype=dtype, **bn_kw,
         )
         # Adopt the ASPP and decoder blocks as direct children, so the

@@ -30,10 +30,17 @@ from zs3_tpu_torch import quant
 # against 0.18 ms for the os16 ASPP branch at 4x33x33x2048 -> 256;
 # chip_smoke.py times both, PERF.md has the numbers).
 SPACE_TO_BATCH_MIN_DILATION = 11
+# From this dilation on, a grouped "same" conv runs as space-to-batch too.
+# On an H100, cuDNN's bf16 channels_last depthwise 3x3 at dilation 2 or 4
+# takes some 45x its bytes bound (0.481 ms for 8x1024x33x33 at d = 2, 0.0202
+# at d = 1); space-to-batch takes 0.148 ms forward, and 0.342 against 0.611
+# forward and backward (chip_smoke.py::depthwise_routes_ms times the routes,
+# PERF.md has the numbers).
+GROUPED_SPACE_TO_BATCH_MIN_DILATION = 2
 
 
 def conv2d_space_to_batch(
-    x: torch.Tensor, weight: torch.Tensor, bias, dilation: int
+    x: torch.Tensor, weight: torch.Tensor, bias, dilation: int, groups: int = 1
 ) -> torch.Tensor:
     """A stride-1 conv with dilation d and "same" padding d*(k-1)/2, as a
     dilation-1 conv over the d*d residue classes of the input grid.
@@ -42,8 +49,9 @@ def conv2d_space_to_batch(
     (i mod d, j mod d), so each residue class is an ordinary conv with
     padding (k-1)/2; zero-padding H and W up to multiples of d adds only
     zeros the dilated conv would also read.  The products and their sums
-    are those of the dilated conv.  NCHW in (channels_last), NCHW out
-    (channels_last).
+    are those of the dilated conv.  The residue classes only move pixels,
+    never channels, so a grouped conv keeps its `groups`.  NCHW in
+    (channels_last), NCHW out (channels_last).
     """
     d = dilation
     b, c, h, w = x.shape
@@ -51,7 +59,7 @@ def conv2d_space_to_batch(
     xh = F.pad(x.permute(0, 2, 3, 1), (0, 0, 0, wq * d - w, 0, hq * d - h))
     xs = xh.reshape(b, hq, d, wq, d, c).permute(0, 2, 4, 1, 3, 5)
     xs = xs.reshape(b * d * d, hq, wq, c).permute(0, 3, 1, 2)
-    y = F.conv2d(xs, weight, bias, 1, (weight.shape[-1] - 1) // 2)
+    y = F.conv2d(xs, weight, bias, 1, (weight.shape[-1] - 1) // 2, 1, groups)
     co = y.shape[1]
     y = y.permute(0, 2, 3, 1).reshape(b, d, d, hq, wq, co).permute(0, 3, 1, 4, 2, 5)
     y = y.reshape(b, hq * d, wq * d, co)[:, :h, :w]
@@ -59,9 +67,12 @@ def conv2d_space_to_batch(
 
 
 class Conv(nn.Conv2d):
-    """2-D conv with torch-style integer padding that runs in `dtype`.
+    """2-D conv with torch-style integer padding that runs in `dtype`;
+    `groups` as zs3_tpu's feature_group_count (groups == in_channels is a
+    depthwise conv).
 
-    A "same" conv of large dilation runs as `conv2d_space_to_batch`.  As
+    A "same" conv of large dilation (a grouped one from dilation 2) runs
+    as `conv2d_space_to_batch`.  As
     zs3_tpu's _ConvImpl: an eligible conv (ungrouped, >= MIN_QUANT_IN_CH
     input channels) whose `quant_path` has a scale under quant.quantized()
     runs as quant.int8_conv; else, under quant.qat() and not excluded, it
@@ -78,10 +89,11 @@ class Conv(nn.Conv2d):
         dilation: int = 1,
         use_bias: bool = False,
         dtype: torch.dtype = torch.float32,
+        groups: int = 1,
     ):
         super().__init__(
             in_channels, features, kernel_size, stride=stride, padding=padding,
-            dilation=dilation, bias=use_bias,
+            dilation=dilation, groups=groups, bias=use_bias,
         )
         self.compute_dtype = dtype
         self.quant_path = ""
@@ -100,15 +112,18 @@ class Conv(nn.Conv2d):
         x = x.to(self.compute_dtype)
         weight = weight.to(self.compute_dtype)
         d, k = self.dilation[0], self.kernel_size[0]
+        min_dilation = (SPACE_TO_BATCH_MIN_DILATION if self.groups == 1
+                        else GROUPED_SPACE_TO_BATCH_MIN_DILATION)
         if (
-            d >= SPACE_TO_BATCH_MIN_DILATION
+            d >= min_dilation
             and self.stride == (1, 1)
             and self.dilation == (d, d)
             and self.kernel_size == (k, k)
             and self.padding == (d * (k - 1) // 2,) * 2
         ):
-            return conv2d_space_to_batch(x, weight, bias, d)
-        return F.conv2d(x, weight, bias, self.stride, self.padding, self.dilation)
+            return conv2d_space_to_batch(x, weight, bias, d, self.groups)
+        return F.conv2d(x, weight, bias, self.stride, self.padding, self.dilation,
+                        self.groups)
 
 
 class BatchNorm(nn.BatchNorm2d):
