@@ -79,6 +79,17 @@ just after:
     conv in channels_last against contiguous_format, DRN's 7x7 stem, and
     DRN's os8 ASPP through space-to-batch against cuDNN's conv.
 
+  * export (after the chained pipeline, on its checkpoints): `export`
+    of R101 at batch 8 (labels, the retrained classifier spliced), 1
+    (logits) and 8 (`--int8`), each artifact against the eager Predictor
+    (the labels one loaded by a process without the port), `serve
+    --artifact` against a checkpoint server, the refusals, MobileNetV2;
+  * data parallel: two gloo ranks on the card (CUDA tensors), each
+    running cli.run: `train-seen` (bf16 513², and f32 65² with TF32 off),
+    `train-gmmn` (K2 6 and K3 4 on each rank) and `evaluate` (K1 per eval
+    batch on each rank) against one rank, with each rank's step time,
+    all-reduce share and peak memory.
+
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
 size (ResNet-50, 65x65, f32): among them the ZS3, graph-context and ZS5
@@ -145,7 +156,7 @@ ZS3_ARGS = [
 ]
 GRAPH_ARGS = [*ZS3_ARGS, "--graph-context"]
 SEEN_STEPS = 4
-SEEN_WINDOW = 20  # steps per timed window
+SEEN_WINDOW = 10  # steps per timed window
 SEEN_ARGS = [
     "train-seen", *FULL_WIDTH, "--batch-size", "8", "--eval-batch-size", "4",
     "--unseen-split", "2", "--epochs", "1", "--steps-per-epoch", str(SEEN_STEPS), *CKPT_ARGS,
@@ -228,7 +239,7 @@ def time_ms(fn, reps: int = 20, rounds: int = 5, what: str = "") -> float:
     return times[len(times) // 2]
 
 
-def rate_windows(fn, calls: int, windows: int = 5):
+def rate_windows(fn, calls: int, windows: int = 3):
     """fn() calls per second on the host clock, over `windows` windows of
     `calls` calls each, every window ending in a synchronize: (the median
     window's rate, every window's rate)."""
@@ -1507,7 +1518,7 @@ def phase_slice():
     check(all(abs(again[k] - metrics[k]) <= 1e-3 for k in metrics), "slice",
           f"second pass disagrees: {again} vs {metrics}")
 
-    # Eval images/s over device batches: 5 windows of 100 batches (host
+    # Eval images/s over device batches: 3 windows of 100 batches (host
     # clock, each ending in a synchronize).  The step waits for the device
     # (its confusion counts sync), so no host-only time is taken here.
     def one_pass():
@@ -1741,7 +1752,7 @@ def phase_serve():
          fused_vs_standard=agree)
 
     # Predictor.predict_batch images/s on 8 letterboxed images, standard
-    # tail and fused tail in turns (off, on, on, off), 5 windows of 5 calls.
+    # tail and fused tail in turns (off, on, on, off), 3 windows of 5 calls.
     model = predictor.model
     frames = list(canvases)
     rates = {}
@@ -2296,7 +2307,7 @@ def time_zs3_step(trainer, phase: str, profile_phase: str):
     from zs3_tpu_torch.train.seen import device_batch
     from zs3_tpu_torch.utils.profiling import profile_device
 
-    # Steps/s over device batches: 5 windows of 100 steps (host clock,
+    # Steps/s over device batches: 3 windows of 50 steps (host clock,
     # each ending in a synchronize), the host's own ms per step, and the
     # host syncs in one step (none, or host_ms would include device time).
     host_batches = [b for _, b in zip(range(ZS3_STEPS), trainer.train_loader)]
@@ -2314,7 +2325,7 @@ def time_zs3_step(trainer, phase: str, profile_phase: str):
     before = _params(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps_per_sec, window_rates = rate_windows(one_step, calls=100)
+    steps_per_sec, window_rates = rate_windows(one_step, calls=50)
     peak = torch.cuda.max_memory_allocated() / 2**30
     moved = [not torch.equal(a, b) for a, b in zip(before, _params(trainer))]
     check(all(moved), phase, f"parameters that did not move: {moved}")
@@ -2599,7 +2610,7 @@ def conv_fwd_bwd_ms(x, weight, dilation, space_to_batch):
 def phase_seen():
     """`cli train-seen` at full width (train batch 8, loss at full
     resolution, dropout on), 4 steps and one validation; then, on the
-    trainer it ran, its steps/s over 5 windows of 20 steps on batches on
+    trainer it ran, its steps/s over 3 windows of 10 steps on batches on
     the card, the host's ms per step, the device ms per step and the top
     kernels, and the backward of the dilated convs of layer4 and the ASPP."""
     from zs3_tpu_torch import cli
@@ -2634,7 +2645,7 @@ def phase_seen():
          checkpoint=os.path.relpath(ckpt), checkpoint_mib=os.path.getsize(ckpt) / 2**20,
          wall_seconds_with_setup=wall)
 
-    # Steps/s over batches on the card: 5 windows of 20 steps (host clock,
+    # Steps/s over batches on the card: 3 windows of 10 steps (host clock,
     # each ending in a synchronize); the host's own ms per step and its syncs.
     host_batches = [b for _, b in zip(range(SEEN_STEPS), trainer.train_loader)]
     batches = [device_batch(b, trainer.device) for b in host_batches]
@@ -2748,6 +2759,7 @@ def phase_chained(seen_ckpt):
     trainer, gmmn_ckpt = stage("train-gmmn", ["train-gmmn", *common, "--batch-size", "8",
                                               "--epochs", "1", "--steps-per-epoch", "1",
                                               "--no-val"], k1=False, k2=3, k3=2)
+    MEASURED["gmmn_checkpoint"] = gmmn_ckpt  # phase_export exports its classifier
     gmmn = Saver.restore(gmmn_ckpt)
     same(gmmn["gen"], trainer.generator.state_dict(), "gmmn checkpoint: generator")
     same(gmmn["cls"], {k: v.detach() for k, v in trainer.step.cls.items()},
@@ -3500,7 +3512,7 @@ def phase_int8():
          percentile_over_absmax_median=float(np.median([pct[k] / absmax[k] for k in pct])))
 
     # Eval images/s, int8 and bf16 in turns (bf16, int8, int8, bf16) over the
-    # same device batches: 5 windows of one pass; device ms per image.
+    # same device batches: 3 windows of one pass; device ms per image.
     train_cfg = dataclasses.replace(trainer.cfg.train, int8_eval=True)
     steps = {"bf16": make_eval_step(n, 255),
              "int8": select_eval_step(n, 255, train_cfg, scales)}
@@ -4089,6 +4101,668 @@ def drn_aspp_check(phase):
     return out
 
 
+EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_export")
+EXPORT_BATCH = 8
+# Run in a process whose sys.path holds no checkout: torch.export alone.
+LOAD_ALONE = r"""
+import json, sys, numpy as np, torch
+module = torch.export.load(sys.argv[1]).module()
+with torch.no_grad():
+    labels = module(torch.from_numpy(np.load(sys.argv[2])).cuda())
+np.save(sys.argv[3], labels.cpu().numpy())
+print(json.dumps({"imported": sorted(m for m in sys.modules if m.split(".")[0] in (
+    "zs3_tpu_torch", "zs3_tpu", "jax")), "device": str(labels.device),
+    "dtype": str(labels.dtype), "shape": list(labels.shape)}))
+"""
+
+
+@contextlib.contextmanager
+def counting_space_to_batch(counts: dict):
+    """Count the calls of models/layers.py's space-to-batch conv (a trace
+    calls it once per conv it routes), dense and grouped apart."""
+    from zs3_tpu_torch.models import layers
+
+    orig = layers.conv2d_space_to_batch
+
+    def counted(x, weight, bias, dilation, groups=1):
+        key = "grouped" if groups > 1 else "dense"
+        counts[key] = counts.get(key, 0) + 1
+        return orig(x, weight, bias, dilation, groups)
+
+    layers.conv2d_space_to_batch = counted
+    try:
+        yield counts
+    finally:
+        layers.conv2d_space_to_batch = orig
+
+
+def export_cli(phase, argv, what):
+    """cli.run(["export", *argv]) with the counts from 0: (its result, the
+    wall seconds, the space-to-batch convs its trace routed).  An export
+    launches no kernel: K1 and K4 are not in the artifact."""
+    from zs3_tpu_torch import cli
+
+    routes = {}
+    reset_counts()
+    t0 = time.time()
+    with counting_space_to_batch(routes):
+        result, _ = cli.run(["export", *argv])
+    seconds = time.time() - t0
+    launches = read_counts()
+    check(not any(launches.values()), phase, f"{what}: the export launched {launches}")
+    check(result["bytes"] == os.path.getsize(result["artifact"])
+          and os.path.exists(result["artifact"] + ".json"), phase, f"{what}: {result}")
+    return result, seconds, routes
+
+
+def spliced_predictor(cfg, gmmn_ckpt):
+    """The eager Predictor of cfg (standard tail) with the retrained
+    classifier of `gmmn_ckpt` spliced in, as evaluate-gmmn serves it."""
+    from zs3_tpu_torch.export import restore_retrained_classifier
+    from zs3_tpu_torch.train.gmmn import splice_classifier
+    from zs3_tpu_torch.train.predict import Predictor
+
+    predictor = Predictor(cfg, device="cuda")
+    cls = restore_retrained_classifier(gmmn_ckpt, cfg.model.num_classes)
+    splice_classifier(predictor.model, {k: v.cuda() for k, v in cls.items()})
+    return predictor
+
+
+def source_logits(predictor, canvases, scales=None):
+    """(B, 129, 129, C) f32 logits of the feature grid (before the
+    upsample), under int8 `scales` when given: what near-ties are judged on."""
+    from zs3_tpu_torch import quant
+    from zs3_tpu_torch.data.transforms import batched_normalize_device
+
+    model = predictor.model
+    x = batched_normalize_device(torch.from_numpy(canvases).cuda())
+    with torch.inference_mode(), (quant.quantized(scales) if scales
+                                  else contextlib.nullcontext()):
+        return model.classify(model.forward_features(x)).float()
+
+
+def phase_export(seen_ckpt, gmmn_ckpt):
+    """`cli export` of the chained phase's checkpoints at full width
+    (R101, os16, 513x513, bf16, 21 classes, split 2), through torch.export:
+
+      * `--export-batch 8 --emit labels --resume <seen> --gmmn-resume
+        <gmmn>`: a process without the port on its path loads the artifact
+        (torch.export alone) and labels 8 letterboxed VOC-sized canvases,
+        equal to the eager Predictor's with the classifier spliced
+        (standard tail) outside near-ties (top-2 gap within 8 bf16 ulps of
+        the taps' scale); the artifact's device ms (profiler, kernels
+        only) against that forward's;
+      * `--emit logits` at batch 1 within 8 bf16 ulps of the eager logits;
+      * `--int8 --calib-images` (8 PNGs): labels equal to
+        Predictor.quantize's eager int8 ones outside near-ties;
+      * `serve --artifact` answering 16 POSTs, its PNGs equal to a
+        checkpoint server's (the classifier spliced) outside near-ties;
+      * the refusals (`--fused-tail`, two platforms, `serve --artifact
+        --serve-batch 8`), each raising out of `cli.main` with its message;
+      * MobileNetV2 (dilated depthwise convs through space-to-batch).
+    The trace's counts of space-to-batch convs and int8 convs are counts
+    of the Python that torch.export ran, not launches."""
+    import numpy as np
+    from PIL import Image
+
+    from zs3_tpu_torch import cli, quant
+    from zs3_tpu_torch.data.transforms import (batched_normalize_device, letterbox_image,
+                                               unletterbox_pred)
+    from zs3_tpu_torch.export import restore_retrained_classifier
+    from zs3_tpu_torch.serve import InferenceServer
+    from zs3_tpu_torch.train.gmmn import splice_classifier
+    from zs3_tpu_torch.train.predict import Predictor
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    phase = "export"
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    art = lambda name: os.path.join(EXPORT_DIR, name)
+    common = [*FULL_WIDTH, "--unseen-split", "2", "--resume", seen_ckpt]
+    cfg = cli.build_config(cli.make_parser().parse_args(["export", *common, "--output", "x"]))
+    size = (cfg.data.crop_size, cfg.data.crop_size)
+    images = voc_like_images(7, EXPORT_BATCH)
+    canvases = np.stack([letterbox_image(img, cfg.data.crop_size)[0] for img in images])
+    out = {}
+
+    # Labels at batch 8, the zero-shot classifier spliced.
+    labels, seconds, routes = export_cli(phase, [
+        *common, "--gmmn-resume", gmmn_ckpt, "--output", art("r101_labels_b8.pt2"),
+        "--export-batch", str(EXPORT_BATCH), "--emit", "labels"], "labels")
+    check(labels["zero_shot_classifier"] and labels["platforms"] == ["cuda"]
+          and labels["batch_size"] == EXPORT_BATCH and not labels["int8"], phase, str(labels))
+    check(routes.get("dense", 0) == 2, phase,
+          f"the ASPP's d = 12 and 18 convs traced as space-to-batch: {routes}")
+    np.save(art("canvases.npy"), canvases)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", LOAD_ALONE, labels["artifact"],
+                           art("canvases.npy"), art("labels.npy")], cwd=EXPORT_DIR, env=env,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, phase, f"loading alone: {proc.stderr[-3000:]}")
+    alone = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(alone["imported"] == [] and alone["dtype"] == "torch.int32", phase, str(alone))
+    got = torch.from_numpy(np.load(art("labels.npy"))).cuda()
+    predictor = spliced_predictor(cfg, gmmn_ckpt)
+    want = predictor._logits(canvases).argmax(-1).to(torch.int32)
+    src = source_logits(predictor, canvases)
+    tol = 8 * bf16_ulp(tap_max(src, size))
+    ties, _ = compare_labels(got, want, src, size, phase, "the artifact against the Predictor",
+                             tol)
+    out["labels_b8"] = {
+        "export_wall_seconds": seconds, "artifact_bytes": labels["bytes"],
+        "space_to_batch_convs_traced": routes, "load_alone": alone,
+        "load_alone_wall_seconds_with_start": time.time() - t0,
+        "pixels": got.numel(), "near_ties": ties, "labels_differ": int((got != want).sum())}
+
+    # Device ms of a batch of 8: the artifact against the eager forward it
+    # was traced from (normalize, trunk, portable resize, argmax), in turns.
+    module = torch.export.load(labels["artifact"]).module()
+    x = torch.from_numpy(canvases).cuda()
+    model = predictor.model
+
+    def eager():
+        return model(batched_normalize_device(x)).float().argmax(-1).to(torch.int32)
+
+    turns, walls = {}, {}
+    with torch.inference_mode():
+        for name, fn in (("eager", eager), ("artifact", lambda: module(x))):
+            prof = profile_device(fn, steps=3)
+            check(prof["device_busy_ms"] > 0, phase, "the profiler saw no device time")
+            turns.setdefault(name, []).append(prof["device_busy_ms"] / 3)
+            walls.setdefault(name, []).append(prof["wall_ms"] / 3)
+        out["labels_b8"]["device_ms"] = turns
+        out["labels_b8"]["wall_ms_traced"] = walls
+        out["labels_b8"]["artifact_over_eager"] = (sum(turns["artifact"])
+                                                   / sum(turns["eager"]))
+    del module
+
+    # Logits at batch 1.
+    logits, seconds, _ = export_cli(phase, [
+        *common, "--gmmn-resume", gmmn_ckpt, "--output", art("r101_logits_b1.pt2"),
+        "--export-batch", "1", "--emit", "logits"], "logits")
+    module = torch.export.load(logits["artifact"]).module()
+    with torch.inference_mode():
+        got_logits = module(x[:1])
+    want_logits = predictor._logits(canvases[:1])
+    diff = (got_logits - want_logits).abs()
+    ulps = 8 * bf16_ulp(tap_max(src[:1], size))[..., None]
+    check(got_logits.dtype == torch.float32 and bool((diff <= ulps).all()), phase,
+          f"logits artifact off the eager logits by {float(diff.max())}")
+    out["logits_b1"] = {"export_wall_seconds": seconds, "artifact_bytes": logits["bytes"],
+                        "max_abs_diff": float(diff.max()),
+                        "max_abs_logit": float(want_logits.abs().max())}
+    del module
+
+    # serve --artifact against a checkpoint server, 16 POSTs each.
+    bodies = [png_bytes(img) for img in images[:8] + voc_like_images(9, 8)]
+    argv = ["serve", *common, "--artifact", labels["artifact"], "--port", "0"]
+    args = cli.make_parser().parse_args(argv)
+    servers = {
+        "artifact": InferenceServer(cli.build_config(args), port=0, artifact=args.artifact,
+                                    device=args.device),
+        "checkpoint": InferenceServer(cfg, port=0, device="cuda"),
+    }
+    cls = restore_retrained_classifier(gmmn_ckpt, cfg.model.num_classes)
+    splice_classifier(servers["checkpoint"].service.predictor.model,
+                      {k: v.cuda() for k, v in cls.items()})
+    answers, served = {}, {}
+    for name, server in servers.items():
+        server.start(warmup=True)
+        try:
+            t0 = time.perf_counter()
+            answers[name] = [post(server.port, body) for body in bodies]
+            served[name] = {"seconds": time.perf_counter() - t0,
+                            "info": server.service.info()}
+        finally:
+            server.stop()
+    check(served["artifact"]["info"]["source"] == "artifact", phase, str(served))
+    differ = ties_total = 0
+    for body, a, c in zip(bodies, answers["artifact"], answers["checkpoint"]):
+        check(a[0] == 200 and c[0] == 200, phase, f"serve answers {a[0]} {c[0]}")
+        image = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        canvas, content = letterbox_image(image, cfg.data.crop_size)
+        s = source_logits(predictor, canvas[None])
+        tie = near_ties(s, size, 8 * bf16_ulp(tap_max(s, size)))[0].cpu().numpy()
+        tie = unletterbox_pred(tie.astype(np.uint8), content, image.shape[:2]) > 0
+        bad = int(((a[1] != c[1]) & ~tie).sum())
+        check(bad == 0, phase, f"serve --artifact: {bad} pixels differ outside near-ties")
+        differ += int((a[1] != c[1]).sum())
+        ties_total += int(tie.sum())
+    out["serve_artifact"] = {"requests": len(bodies), "labels_differ": differ,
+                             "near_ties": ties_total,
+                             "artifact_requests_per_sec": len(bodies) / served["artifact"][
+                                 "seconds"],
+                             "checkpoint_requests_per_sec": len(bodies) / served[
+                                 "checkpoint"]["seconds"]}
+    del servers
+
+    # int8 at batch 8, calibrated on 8 PNGs.
+    calib = voc_like_images(8, 8)
+    pngs = []
+    for i, img in enumerate(calib):
+        pngs.append(art(f"calib{i}.png"))
+        Image.fromarray(img).save(pngs[-1])
+    int8, seconds, _ = export_cli(phase, [
+        *common, "--gmmn-resume", gmmn_ckpt, "--output", art("r101_int8_b8.pt2"),
+        "--export-batch", str(EXPORT_BATCH), "--int8", "--calib-images", *pngs], "int8")
+    int8_traced = quant.int8_conv.launches  # export_cli counted from 0: trace-time calls
+    check(int8["int8"] and int8_traced == INT8_CONVS, phase,
+          f"int8 artifact: {int8_traced} int8 convs traced, want {INT8_CONVS}")
+    module = torch.export.load(int8["artifact"]).module()
+    with torch.inference_mode():
+        got8 = module(x)
+    eager8 = predictor  # from here on int8: served and compared above in float
+    eager8.quantize([np.asarray(Image.open(p).convert("RGB")) for p in pngs])
+    want8 = eager8._logits(canvases).argmax(-1).to(torch.int32)
+    src8 = source_logits(eager8, canvases, eager8._scales)
+    ties8, _ = compare_labels(got8, want8, src8, size, phase,
+                              "the int8 artifact against the int8 Predictor",
+                              8 * bf16_ulp(tap_max(src8, size)))
+    out["int8_b8"] = {"export_wall_seconds": seconds, "artifact_bytes": int8["bytes"],
+                      "int8_convs_traced": int8_traced, "near_ties": ties8,
+                      "labels_differ": int((got8 != want8).sum()),
+                      "int8_matches_float_labels": float((got8 == want).float().mean())}
+    del module
+
+    # The refusals: each raises out of cli.main, so `python -m
+    # zs3_tpu_torch.cli` exits 1 with its message.
+    refusals = {
+        "export --fused-tail": (["export", *FULL_WIDTH, "--allow-random", "--fused-tail",
+                                 "--output", art("no.pt2")], "fused-tail"),
+        "export --platforms cuda,cpu": (["export", *FULL_WIDTH, "--allow-random",
+                                         "--platforms", "cuda,cpu", "--output",
+                                         art("no.pt2")], "one device"),
+        "serve --artifact --serve-batch 8": (["serve", *FULL_WIDTH, "--artifact",
+                                              labels["artifact"], "--serve-batch", "8",
+                                              "--port", "0"], "fixed baked-in batch"),
+    }
+    out["refusals"] = {}
+    for name, (argv, message) in refusals.items():
+        try:
+            cli.main(argv)
+            raised = "nothing"
+        except ValueError as e:
+            raised = str(e)
+        check(message in raised, phase, f"{name}: raised {raised[:300]}")
+        out["refusals"][name] = raised
+    check(not os.path.exists(art("no.pt2")), phase, "a refused export wrote an artifact")
+
+    # MobileNetV2: its dilated depthwise convs trace as grouped space-to-batch.
+    mb_args = [*FULL_WIDTH, "--backbone", "mobilenet", "--allow-random"]
+    mb, seconds, mb_routes = export_cli(phase, [*mb_args, "--output", art("mobilenet_b1.pt2"),
+                                                "--emit", "logits"], "mobilenet")
+    check(mb_routes.get("grouped", 0) > 0, phase, f"MobileNetV2 routes {mb_routes}")
+    mb_cfg = cli.build_config(cli.make_parser().parse_args(["export", *mb_args, "--output",
+                                                            "x"]))
+    mb_eager = Predictor(mb_cfg, device="cuda")
+    module = torch.export.load(mb["artifact"]).module()
+    with torch.inference_mode():
+        mb_got = module(x[:1])
+    mb_want = mb_eager._logits(canvases[:1])
+    mb_src = source_logits(mb_eager, canvases[:1])
+    mb_diff = (mb_got - mb_want).abs()
+    check(bool((mb_diff <= 8 * bf16_ulp(tap_max(mb_src, size))[..., None]).all()), phase,
+          f"MobileNetV2 artifact off the eager logits by {float(mb_diff.max())}")
+    out["mobilenet_b1"] = {"export_wall_seconds": seconds, "artifact_bytes": mb["bytes"],
+                           "space_to_batch_convs_traced": mb_routes,
+                           "max_abs_diff": float(mb_diff.max())}
+    del module, mb_eager, predictor
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase=phase, command="python -m zs3_tpu_torch.cli export " + " ".join(common),
+         **out, ok=True)
+    return out
+
+
+DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_dp")
+DP_RANKS = 2
+DP_STEPS = 2
+# Two ranks against one on the same global batch, by compute dtype: the
+# first step's loss (the forward: data, masks, global BN statistics),
+# relative; the whole model's change over the steps (`rel_err`), relative.
+# bf16: one bf16 ulp of the loss; the change over 2 steps within 10%: a
+# rounding-level change of one rank's BN arithmetic alone moved it 7.5%
+# (f32, 65x65, PERF.md section 6), and rounding grows with each step.  f32
+# (TF32 off) takes one step: its change within 1e-2 (one rank against
+# itself, cuDNN's weight-gradient sums being nondeterministic, 1.2e-3 after
+# two steps; an f32 step against f64, 1.4e-3 on the CPU).
+DP_TOLERANCE = {"bf16": {"first_loss": 2.0 ** -8, "step": 1e-1},
+                "f32": {"first_loss": 1e-5, "step": 1e-2}}
+F32_SIZE = ["--crop-size", "65", "--base-size", "65", "--compute-dtype", "float32"]
+
+
+def dp_stages(seen_ckpt, world: int) -> dict:
+    """name -> the `cli` argv of each data-parallel stage, for `world`
+    ranks (the one-rank run also takes `evaluate_b2`: the forwards of
+    batch 2 that each of two ranks runs on an eval batch of 4)."""
+    def run_dir(name):
+        return ["--checkpoint-dir", os.path.join(DP_DIR, f"{name}_{world}"),
+                "--checkname", "dp"]
+
+    steps = ["--epochs", "1", "--steps-per-epoch", str(DP_STEPS), "--no-val"]
+    seen = ["train-seen", *FULL_WIDTH, "--batch-size", "8", "--unseen-split", "2", *steps]
+    seen_f32 = [*seen, *F32_SIZE, "--steps-per-epoch", "1"]
+    stages = {
+        "seen_bf16": [*seen, *run_dir("seen_bf16")],
+        "seen_f32": [*seen_f32, *run_dir("seen_f32")],
+        "gmmn": ["train-gmmn", *FULL_WIDTH, "--batch-size", "8", "--unseen-split", "2",
+                 *steps, "--resume", seen_ckpt, *run_dir("gmmn")],
+        "evaluate": ["evaluate", *FULL_WIDTH, "--eval-batch-size", "4", "--unseen-split", "2",
+                     "--resume", seen_ckpt, *run_dir("evaluate")],
+    }
+    if world == 1:
+        stages["evaluate_b2"] = [*stages["evaluate"], "--eval-batch-size", "2"]
+        # The same run again: how far one rank is from itself (cuDNN's f32
+        # weight gradients are not deterministic; its bf16 ones were).
+        stages["seen_f32_repeat"] = [*seen_f32, *run_dir("seen_f32_repeat")]
+    return stages
+
+
+def tensor_digest(tensors: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def timed_steps(record: list, collectives: list):
+    """Time every seen and ZS3 step (synchronized before and after) into
+    `record` as (ms, collective ms inside it, the seen step's loss or
+    None); `collectives` [ms, calls] is what the all-reduce wrapper of
+    dp_rank adds up."""
+    from zs3_tpu_torch.train import gmmn, seen
+
+    orig_make, orig_call = seen.make_train_step, gmmn.ZS3Step.__call__
+
+    def timed(fn):
+        def step(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), collectives[0]
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            loss = float(out["loss"]) if "loss" in out else None
+            record.append((1e3 * (time.perf_counter() - t0), collectives[0] - c0, loss))
+            return out
+        return step
+
+    seen.make_train_step = lambda *a, **kw: timed(orig_make(*a, **kw))
+    gmmn.ZS3Step.__call__ = timed(gmmn.ZS3Step.body)
+    try:
+        yield
+    finally:
+        seen.make_train_step, gmmn.ZS3Step.__call__ = orig_make, orig_call
+
+
+def run_dp_stage(name: str, argv, collectives: list) -> dict:
+    """cli.run(argv) with the counts from 0 (f32 stages with TF32 off):
+    its result, launches, steps' ms and collective ms, peak memory, and
+    what the comparisons read (the trained tensors, or the confusion)."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.train.seen import select_eval_step, sum_confusion
+
+    f32 = "f32" in name
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if f32:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    steps = []
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        with timed_steps(steps, collectives):
+            result, trainer = cli.run(argv)
+        torch.cuda.synchronize()
+        out = {"result": result, "launches": read_counts(), "wall_seconds": time.time() - t0,
+               "step_ms": [s[0] for s in steps], "collective_ms": [s[1] for s in steps],
+               "losses": [s[2] for s in steps],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if name.startswith("seen"):
+            state = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+            out.update(state=state, digest=tensor_digest(state))
+        elif name == "gmmn":
+            state = {**{f"gen.{k}": v.detach().cpu()
+                        for k, v in trainer.generator.state_dict().items()},
+                     **{f"cls.{k}": v.detach().cpu() for k, v in trainer.step.cls.items()}}
+            out.update(state=state, digest=tensor_digest(state))
+        else:
+            cfg = trainer.cfg
+            step = select_eval_step(trainer.num_classes, cfg.data.ignore_index, cfg.train)
+            out["confusion"] = sum_confusion(
+                lambda b: step(trainer.model, b), trainer.val_loader, trainer.num_classes,
+                trainer.device, cfg.data.ignore_index, trainer.mesh).cpu()
+        del trainer
+        return out
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def dp_rank(rank: int, world: int, port: int, seen_ckpt: str):
+    """One rank of phase_data_parallel: joins a gloo group on the one card
+    (CUDA tensors; NCCL refuses two ranks on one device), times every
+    all-reduce (synchronized before and after), runs the stages and writes
+    what they gave to DP_DIR/rank<r>.pt (rank 1: digests and the small
+    tensors only)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    collectives = [0.0, 0]
+    orig = dist.all_reduce
+
+    def all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = orig(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        collectives[0] += 1e3 * (time.perf_counter() - t0)
+        collectives[1] += 1
+        return work
+
+    dist.all_reduce = all_reduce
+    out = {}
+    for name, argv in dp_stages(seen_ckpt, world).items():
+        out[name] = run_dp_stage(name, argv, collectives)
+        if rank and name.startswith("seen"):
+            del out[name]["state"]  # rank 0's tensors are compared; rank 1's digest
+    out["all_reduce_calls"] = collectives[1]
+    torch.save(out, os.path.join(DP_DIR, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def rel_err(a: dict, b: dict, start: dict = None) -> dict:
+    """How far a is from b over their floating tensors, relative to b's
+    change from `start` (to b without `start`): the whole model's
+    ||a - b|| / ||b - start|| ("global"), and the worst tensor's
+    max|a - b| / max|b - start| with its name."""
+    worst, num, den = (0.0, ""), 0.0, 0.0
+    for k in b:
+        if b[k].is_floating_point():
+            diff = a[k].double() - b[k].double()
+            ref = b[k].double() if start is None else b[k].double() - start[k].double()
+            num += float(diff.square().sum())
+            den += float(ref.square().sum())
+            worst = max(worst, (float(diff.abs().max()) / max(float(ref.abs().max()), 1e-30),
+                                k))
+    return {"global": (num / max(den, 1e-300)) ** 0.5, "worst_tensor": worst[0],
+            "worst_tensor_name": worst[1]}
+
+
+def phase_data_parallel(seen_ckpt):
+    """Two ranks over gloo on the one card (CUDA tensors), each a process
+    running cli.run as torchrun's ranks would (dp_rank), against the
+    one-rank run of the same stages in this process:
+
+      * `train-seen` at full width, global batch 8 (4 a rank), 2 steps,
+        and in f32 with TF32 off at 65x65, 1 step: the ranks end
+        bit-equal; the first step's loss, and the whole model's change
+        over the steps (parameters and BN statistics, `rel_err`), within
+        DP_TOLERANCE of the one-rank run's; beside the f32 ones, one rank
+        against itself (the same run again);
+      * `train-gmmn --resume <seen>` 2 steps: K2 6 and K3 4 launches on
+        each rank, the generator and classifier bit-equal on the ranks,
+        within 1e-2 (`rel_err`, whole model) of the one-rank run's;
+      * `evaluate --resume <seen>` (eval batch 4): K1 once per eval batch
+        on each rank; the confusion equal to the one-rank confusion of
+        forwards of the ranks' size (eval batch 2), and how far from the
+        one-rank eval batch 4.
+    Each rank's peak memory, its step times and the share of the step in
+    all-reduces (synchronized around each call, so they serialize with
+    the compute: gloo's host copies wait for it anyway).  Two ranks share
+    one card: these times are no scaling figure."""
+    import socket
+
+    phase = "data parallel"
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = []
+    for r in range(DP_RANKS):
+        log = open(os.path.join(DP_DIR, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as c; c.dp_rank({r}, {DP_RANKS}, {port}, {seen_ckpt!r})"],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=900)
+    finally:
+        for proc, log in procs:
+            proc.kill()
+            log.close()
+    ranks_wall = time.time() - t0
+    for r, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(DP_DIR, f"rank{r}.log")) as f:
+                fail(phase, f"rank {r} exited {proc.returncode}: {f.read()[-3000:]}")
+    ranks = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"), weights_only=True)
+             for r in range(DP_RANKS)]
+    one = {}
+    for name, argv in dp_stages(seen_ckpt, 1).items():
+        one[name] = run_dp_stage(name, argv, [0.0, 0])
+    report = {"ranks_wall_seconds_with_start": ranks_wall,
+              "all_reduce_calls": [r["all_reduce_calls"] for r in ranks]}
+
+    def steps_of(stage):
+        return {"one_rank_step_ms": one[stage]["step_ms"],
+                "rank_step_ms": [r[stage]["step_ms"] for r in ranks],
+                "rank_collective_ms": [r[stage]["collective_ms"] for r in ranks],
+                "collective_share_last_step": [r[stage]["collective_ms"][-1]
+                                               / r[stage]["step_ms"][-1] for r in ranks],
+                "rank_peak_mem_gib": [r[stage]["peak_mem_gib"] for r in ranks],
+                "one_rank_peak_mem_gib": one[stage]["peak_mem_gib"]}
+
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.models.deeplab import build_deeplab, init_deeplab
+
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+
+    for stage, tol in (("seen_bf16", DP_TOLERANCE["bf16"]), ("seen_f32", DP_TOLERANCE["f32"])):
+        cfg = cli.build_config(cli.make_parser().parse_args(dp_stages(seen_ckpt, 1)[stage]))
+        start = init_deeplab(build_deeplab(cfg.model), cfg.train.seed).state_dict()
+        a, b = ranks[0][stage], ranks[1][stage]
+        expect(a["digest"] == b["digest"]
+               and a["result"]["train_loss"] == b["result"]["train_loss"],
+               f"{stage}: the ranks' models or losses differ")
+        loss, want = a["result"]["train_loss"], one[stage]["result"]["train_loss"]
+        err = rel_err(a["state"], one[stage]["state"], start)
+        first = abs(a["losses"][0] - one[stage]["losses"][0]) / abs(one[stage]["losses"][0])
+        report[stage] = {
+            "losses": a["losses"], "one_rank_losses": one[stage]["losses"],
+            "first_loss_rel_err": first, "train_loss": loss, "one_rank_train_loss": want,
+            "loss_rel_err": abs(loss - want) / abs(want), "step_rel_err": err,
+            "tolerance": tol, "launches": [r[stage]["launches"] for r in ranks],
+            **steps_of(stage)}
+        expect(first <= tol["first_loss"] and err["global"] <= tol["step"],
+               f"{stage}: two ranks against one beyond {tol}")
+        again = one.get(stage + "_repeat")
+        if again:
+            report[stage]["one_rank_repeat"] = {
+                "loss_rel_err": abs(again["result"]["train_loss"] - want) / abs(want),
+                "step_rel_err": rel_err(again["state"], one[stage]["state"], start)}
+    a, b = ranks[0]["gmmn"], ranks[1]["gmmn"]
+    expect(a["digest"] == b["digest"], "train-gmmn: the ranks' generators differ")
+    for r in ranks:
+        expect(r["gmmn"]["launches"] == {"K1": 0, "K2": 3 * DP_STEPS, "K3": 2 * DP_STEPS,
+                                         "K4": 0, "K5": 0},
+               f"train-gmmn launches {r['gmmn']['launches']}")
+    err = rel_err(a["state"], one["gmmn"]["state"])
+    report["gmmn"] = {"result": a["result"], "one_rank_result": one["gmmn"]["result"],
+                      "rel_err": err,
+                      "exact": tensor_digest(one["gmmn"]["state"]) == a["digest"],
+                      "launches": [r["gmmn"]["launches"] for r in ranks], **steps_of("gmmn")}
+    expect(err["global"] <= 1e-2, "train-gmmn: two ranks against one beyond 1e-2")
+    conf = [r["evaluate"]["confusion"] for r in ranks]
+    for r in ranks:
+        expect(r["evaluate"]["launches"]["K1"] == one["evaluate"]["launches"]["K1"],
+               f"evaluate launches {r['evaluate']['launches']} against one rank's "
+               f"{one['evaluate']['launches']}")
+    same_b2 = torch.equal(conf[0], conf[1]) and torch.equal(conf[0],
+                                                            one["evaluate_b2"]["confusion"])
+    expect(same_b2, "evaluate: the two-rank confusion is not the one-rank one at batch 2")
+    report["evaluate"] = {
+        "result": ranks[0]["evaluate"]["result"],
+        "k1_launches_per_rank": [r["evaluate"]["launches"]["K1"] for r in ranks],
+        "one_rank_k1_launches": one["evaluate"]["launches"]["K1"],
+        "confusion_equals_one_rank_batch_2": same_b2,
+        "confusion_cells_differing_from_one_rank_batch_4": int(
+            (conf[0] != one["evaluate"]["confusion"]).sum()),
+        "pixels_moved_against_batch_4": int((conf[0] - one["evaluate"]["confusion"]).abs().sum()
+                                            // 2)}
+    if failures:
+        emit(phase=phase, **report, ok=False)
+        fail(phase, "; ".join(failures))
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    emit(phase=phase, ranks=DP_RANKS, backend="gloo, CUDA tensors, one card", **report,
+         ok=True)
+    return {"gmmn": ranks[0]["gmmn"]["launches"], "evaluate": ranks[0]["evaluate"]["launches"],
+            "seen": ranks[0]["seen_bf16"]["launches"]}
+
+
+def phase_export_and_data_parallel_alone():
+    """phase_export and phase_data_parallel on checkpoints of their own:
+    `train-seen` and then `train-gmmn` at full width, one step each."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.utils.saver import Saver
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    one = ["--epochs", "1", "--steps-per-epoch", "1", "--no-val", *CKPT_ARGS]
+    _, seen = cli.run(["train-seen", *FULL_WIDTH, "--batch-size", "8", "--unseen-split", "2",
+                       *one])
+    seen_ckpt = Saver.latest_checkpoint(seen.saver.directory)
+    del seen
+    _, gmmn = cli.run(["train-gmmn", *FULL_WIDTH, "--batch-size", "8", "--unseen-split", "2",
+                       "--resume", seen_ckpt, *one])
+    gmmn_ckpt = Saver.latest_checkpoint(gmmn.saver.directory)
+    del gmmn
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_export(seen_ckpt, gmmn_ckpt)
+    phase_data_parallel(seen_ckpt)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
 def phase_backbones():
     """phase_backbone for each of BACKBONES; returns {backbone: launches}."""
     out = {}
@@ -4108,43 +4782,67 @@ def main() -> int:
     import zs3_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from zs3_tpu_torch.train.seen import build_eval_model, device_batch
 
+    seconds, clock = {}, [time.time()]
+
+    def lap(name):
+        """Wall seconds since the last lap, as the timeline's `name`."""
+        now = time.time()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+
     phase_env()
     phase_build()
+    lap("env, build")
     timings = phase_kernels()
     mmd_errors, mmd_timings = phase_mmd()
     tail_timings = phase_tail()
     phase_k5_edges()
     phase_dilated()
+    lap("kernels, mmd kernels, tail kernels, bottleneck edges, dilated")
     launches = phase_slice()
     zs3_launches = phase_zs3()
     graph_launches = phase_graph()
+    lap("slice, zs3, graph")
     serve_launches = phase_serve()
     infer_launches = phase_infer()
     tta_launches = phase_tta()
+    lap("serve, infer, tta")
     seen_launches, seen, seen_ckpt = phase_seen()
     images = device_batch(next(iter(seen.val_loader)), torch.device("cuda"))["image"]
     trunk_cfg = seen.cfg.replace(train=dataclasses.replace(seen.cfg.train, resume=seen_ckpt))
     del seen
     gc.collect()
     torch.cuda.empty_cache()
+    lap("seen")
     zs5_launches, zs5_k1 = phase_chained(seen_ckpt)
+    lap("chained, zs5")
+    phase_export(seen_ckpt, MEASURED["gmmn_checkpoint"])
+    lap("export")
+    dp_launches = phase_data_parallel(seen_ckpt)
+    lap("data parallel")
     # K5 on the trunk train-seen trained and wrote, reloaded from its checkpoint.
     k5_launches, k5_errors, k5_timings = phase_bottleneck(build_eval_model(trunk_cfg, "cuda"),
                                                           images)
     del images
     gc.collect()
     torch.cuda.empty_cache()
+    lap("bottleneck")
     data = phase_data()
     gc.collect()
     torch.cuda.empty_cache()
+    lap("data")
     phase_int8()
+    lap("int8")
     bb_launches = phase_backbones()
+    lap("backbones")
     phase_reference()
     phase_zs3_reference()
     phase_graph_reference()
     phase_zs5_reference()
     phase_serve_reference()
     phase_seen_reference()
+    lap("references")
+    emit(phase="timeline", seconds=seconds, total_seconds=sum(seconds.values()))
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     b4 = timings[(4, 21, "float32")]
     data_launches = lambda k: {path: n[k] for path, n in data["launches"].items()}
@@ -4169,6 +4867,7 @@ def main() -> int:
             "launches_graph": graph_launches[key],
             "launches_data": data_launches(key),
             "launches_backbones": bb_counts(key),
+            "launches_data_parallel_per_rank": {"train-gmmn": dp_launches["gmmn"][key]},
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
@@ -4195,6 +4894,7 @@ def main() -> int:
         "zs5_pseudo_label": zs5_k1,
         "launches_data": data_launches("K1"),
         "launches_backbones": bb_counts("K1"),
+        "launches_data_parallel_per_rank": {"evaluate": dp_launches["evaluate"]["K1"]},
         "max_abs_err": b4["max_abs_err"],
         "ms": b4["kernel_ms"],
         "plain_ms": b4["plain_ms"],

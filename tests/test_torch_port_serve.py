@@ -9,6 +9,7 @@ The Predictors run ResNet-50 at 33x33 in f32 on the same weights
 """
 
 import concurrent.futures
+import dataclasses
 import http.client
 import io
 import json
@@ -273,13 +274,19 @@ def test_device_failure_answers_500_to_every_waiter(rng, monkeypatch):
 
 
 def test_artifact_and_int8_are_refused(tmp_path, rng):
-    """Artifacts are refused (not ported); int8 serving, refused before
-    the port had quantization, is refused only without calibration
-    images, and otherwise calibrates on them and reports its int8 convs."""
-    with pytest.raises(NotImplementedError, match="artifact"):
-        SegmentationService(_cfg(), artifact="model.pt2", device="cpu")
-    with pytest.raises(SystemExit, match="artifact"):
-        cli.run(["serve", "--artifact", "model.pt2", *CPU_ARGS])
+    """zs3_tpu's refusals around artifacts (a micro-batched artifact, int8
+    calibration of an artifact, `serve --int8 --artifact`; the artifact
+    itself is served in test_serves_an_artifact_over_http), and int8
+    serving refused only without calibration images; with them it
+    calibrates and reports its int8 convs."""
+    with pytest.raises(ValueError, match="fixed baked-in batch"):
+        SegmentationService(_cfg(), artifact="model.pt2", serve_batch=8, device="cpu")
+    with pytest.raises(ValueError, match="baked in"):
+        SegmentationService(_cfg(), artifact="model.pt2", int8_calib_images=["a.png"],
+                            device="cpu")
+    with pytest.raises(SystemExit, match="export with --int8"):
+        cli.run(["serve", "--int8", "--calib-images", "a.png", "--artifact", "model.pt2",
+                 *CPU_ARGS])
     with pytest.raises(SystemExit, match="--calib-images"):
         cli.run(["serve", "--int8", *CPU_ARGS])
     paths = []
@@ -291,6 +298,50 @@ def test_artifact_and_int8_are_refused(tmp_path, rng):
     assert service.info()["int8_convs"] == 61
     png = service.predict_image(_image(rng, 20, 30))
     assert Image.open(io.BytesIO(png)).size == (30, 20)
+
+
+def test_serves_an_artifact_over_http(predictor_pair, tmp_path, rng):
+    """`serve --artifact`: an exported labels artifact (batch 2) answers
+    /healthz, /info (the manifest's classes and size, source "artifact")
+    and /predict with the checkpoint Predictor's labels on the same
+    weights; sliding windows and a logits artifact are refused."""
+    from zs3_tpu_torch.export import export_predictor, save_exported
+    from zs3_tpu_torch.serve import ArtifactPredictor
+
+    _, ours, ckpt = predictor_pair
+    path = str(tmp_path / "model.pt2")
+    save_exported(path, *export_predictor(ours.cfg, checkpoint=ckpt, batch_size=2,
+                                          device="cpu"))
+    # The service takes the manifest's shape over the config's.
+    cfg = _cfg().replace(model=dataclasses.replace(_cfg().model, num_classes=21))
+    srv = InferenceServer(cfg, port=0, artifact=path, device="cpu").start(warmup=True)
+    try:
+        c = _conn(srv)
+        c.request("GET", "/healthz")
+        assert json.loads(c.getresponse().read())["warm"] is True
+        c.request("GET", "/info")
+        info = json.loads(c.getresponse().read())
+        assert (info["source"], info["num_classes"], info["crop_size"]) == ("artifact", 5, 33)
+        assert info["fused_tail"] is False and info["serve_batch"] == 1
+        for hw in [(40, 50), (33, 33), (20, 45)]:
+            img = _image(rng, *hw)
+            c.request("POST", "/predict", body=_png(img))
+            r = c.getresponse()
+            assert r.status == 200
+            np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(r.read()))),
+                                          ours.predict_array(img))
+        c.request("POST", "/predict?sliding=1", body=_png(_image(rng, 40, 50)))
+        r = c.getresponse()
+        assert r.status == 500 and "sliding" in json.loads(r.read())["error"]
+    finally:
+        srv.stop()
+    logits = str(tmp_path / "logits.pt2")
+    save_exported(logits, *export_predictor(ours.cfg, checkpoint=ckpt, emit="logits",
+                                            device="cpu"))
+    with pytest.raises(ValueError, match="labels artifact"):
+        ArtifactPredictor(logits, device="cpu")
+    for artifact in (path, logits):  # some 160 MB each
+        os.remove(artifact)
 
 
 @pytest.mark.parametrize("sliding", [False, True])

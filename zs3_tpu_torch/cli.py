@@ -19,11 +19,18 @@
     python -m zs3_tpu_torch.cli train-seen --backbone xception --resume init.pt --ft
     python -m zs3_tpu_torch.cli show-config --backbone drn --crop-size 321
     python -m zs3_tpu_torch.cli profile --mode fwd --steps 10 --trace-dir trace
+    python -m zs3_tpu_torch.cli export --output model.pt2 --resume CKPT --gmmn-resume CKPT
+    python -m zs3_tpu_torch.cli serve --artifact model.pt2
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
 the GPU unless --device cpu is given.  Checkpoints go to
 <checkpoint-dir>/<dataset>/<checkname>[-gmmn|-zs5]/experiment_N/.
+train-seen, evaluate, train-gmmn, evaluate-gmmn and train-zs5 run
+data-parallel under torchrun (one rank a card; gloo ranks with --device
+cpu), and rank 0 alone prints and writes:
+
+    torchrun --standalone --nproc_per_node 8 -m zs3_tpu_torch.cli train-seen ...
 """
 
 from __future__ import annotations
@@ -152,7 +159,8 @@ def _add_serve(p: argparse.ArgumentParser):
     p.add_argument("--serve-batch", type=int, default=1,
                    help="micro-batch up to N concurrent requests onto one forward")
     p.add_argument("--artifact", type=str, default=None,
-                   help="serve an exported artifact (not ported yet; refused)")
+                   help="serve an exported labels artifact (cli export) instead of a "
+                        "checkpoint; its batch and size come from its manifest")
     p.add_argument("--calib-images", nargs="+", default=None,
                    help="representative images for int8 activation calibration")
 
@@ -186,6 +194,21 @@ def _add_profile(p: argparse.ArgumentParser):
                    help="what to profile: the seen train step, the eval forward, or the "
                         "int8 PTQ forward (constant stand-in scales: the throughput is "
                         "faithful, the accuracy is not)")
+
+
+def _add_export(p: argparse.ArgumentParser):
+    p.add_argument("--output", type=str, required=True,
+                   help="torch.export artifact path (.pt2; the manifest goes to <output>.json)")
+    p.add_argument("--export-batch", type=int, default=1)
+    p.add_argument("--emit", choices=["labels", "logits"], default="labels")
+    p.add_argument("--platforms", type=str, default=None,
+                   help="the one device type to export for, cuda or cpu (default: --device); "
+                        "an artifact holds one device's weights")
+    p.add_argument("--allow-random", action="store_true",
+                   help="permit exporting without a checkpoint (randomly initialized "
+                        "weights; smoke artifacts only)")
+    p.add_argument("--calib-images", nargs="+", default=None,
+                   help="representative images for int8 activation calibration")
 
 
 def _add_convert_weights(p: argparse.ArgumentParser):
@@ -342,6 +365,11 @@ def make_parser() -> argparse.ArgumentParser:
     _add_checkpoints(profile)
     _add_train_seen(profile)
     _add_profile(profile)
+    export = sub.add_parser("export")
+    _add_common(export)
+    _add_checkpoints(export)
+    _add_int8(export, "bake int8 convs into the artifact; requires --calib-images")
+    _add_export(export)
     convert = sub.add_parser("convert-weights")
     _add_common(convert)
     _add_checkpoints(convert)
@@ -370,25 +398,34 @@ def auto_resume(cfg: Config, command: str) -> Config:
     return cfg
 
 
+DATA_PARALLEL = ("train-seen", "evaluate", "train-gmmn", "evaluate-gmmn", "train-zs5")
+
+
 def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     """Run one command without printing: (its result, the object it ran:
     the SeenTrainer of `train-seen`, `evaluate` and `profile`, the
     GMMNTrainer of `train-gmmn` and `evaluate-gmmn`, the ZS5Trainer of
     `train-zs5`, the Predictor of `infer`, the InferenceServer of `serve`
-    once it stops, the DeepLab of `convert-weights`; None for
+    once it stops, the DeepLab of `convert-weights`, the ExportedProgram of
+    `export`; None for
     `show-config`, `prepare-context` and `build-embeddings`, which run on
     the host alone).  `show-config` returns the config's JSON text.
     `train-zs5` pseudo-labels the train set (the count goes to stderr),
-    then trains."""
+    then trains.  The DATA_PARALLEL commands join the process group
+    torchrun describes, if any (core/mesh.py::init_data_parallel)."""
     args = make_parser().parse_args(argv)
     cfg = build_config(args)
+    if args.command in DATA_PARALLEL:
+        from zs3_tpu_torch.core.mesh import init_data_parallel
+
+        args.device = init_data_parallel(args.device)
     if getattr(args, "auto_resume", None):
         cfg = auto_resume(cfg, args.command)
-    if getattr(args, "artifact", None):
-        raise SystemExit("serve --artifact: exported artifacts are not ported yet "
-                         "(see ROADMAP Queue 1, Export)")
     if args.command == "serve" and args.int8 and not args.calib_images:
         raise SystemExit("serve --int8 requires --calib-images")
+    if args.command == "serve" and args.int8 and args.artifact:
+        raise SystemExit("serve --int8 applies to checkpoint serving; for artifact "
+                         "serving, export with --int8 instead")
 
     if args.command == "show-config":
         return cfg.to_json(), None
@@ -439,7 +476,7 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     if args.command == "serve":
         from zs3_tpu_torch.serve import InferenceServer
 
-        server = InferenceServer(cfg, host=args.host, port=args.port,
+        server = InferenceServer(cfg, host=args.host, port=args.port, artifact=args.artifact,
                                  serve_batch=args.serve_batch, device=args.device,
                                  int8_calib_images=args.calib_images if args.int8 else None)
         print(json.dumps({"serving": f"http://{args.host}:{server.port}"}),
@@ -449,6 +486,8 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
         finally:
             server.httpd.server_close()
         return {"served": f"http://{args.host}:{server.port}"}, server
+    if args.command == "export":
+        return export_command(cfg, args)
     if args.command == "prepare-context":
         from zs3_tpu_torch.data.context_prepare import prepare_context
 
@@ -468,6 +507,28 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
                                         normalize=not args.no_normalize,
                                         aliases=aliases), None
     raise AssertionError(args.command)  # pragma: no cover
+
+
+def export_command(cfg: Config, args: argparse.Namespace):
+    """`cli export`: the artifact and its manifest written; returns
+    ({"artifact", "bytes", **manifest}, the ExportedProgram)."""
+    from zs3_tpu_torch.export import export_predictor, save_exported
+
+    calib = None
+    if args.int8:
+        if not args.calib_images:
+            raise SystemExit("export --int8 requires --calib-images")
+        import numpy as np
+        from PIL import Image
+
+        calib = [np.asarray(Image.open(p).convert("RGB")) for p in args.calib_images]
+    program, manifest = export_predictor(
+        cfg, batch_size=args.export_batch, emit=args.emit,
+        platforms=args.platforms.split(",") if args.platforms else None,
+        allow_random=args.allow_random, int8_calib_images=calib, device=args.device,
+    )
+    size = save_exported(args.output, program, manifest)
+    return {"artifact": args.output, "bytes": size, **manifest}, program
 
 
 def convert_weights(cfg: Config, pth: str, output: str, force: bool):
@@ -496,8 +557,17 @@ def convert_weights(cfg: Config, pth: str, output: str, force: bool):
 
 
 def main(argv=None) -> int:
-    result, _ = run(argv)
-    print(result if isinstance(result, str) else json.dumps(result))
+    import torch.distributed as dist
+
+    from zs3_tpu_torch.core.mesh import world_size
+
+    try:
+        result, _ = run(argv)
+        if world_size() == 1 or dist.get_rank() == 0:  # one line, from rank 0
+            print(result if isinstance(result, str) else json.dumps(result))
+    finally:
+        if world_size() > 1:
+            dist.destroy_process_group()
     return 0
 
 

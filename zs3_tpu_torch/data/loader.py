@@ -16,7 +16,9 @@ epoch, index), so its batches are zs3_tpu's byte for byte.  An error in
 a worker reaches the consumer as RuntimeError; an abandoned iterator
 stops and joins its producer and pool.  With `pin_memory` (the trainers
 set it on a CUDA device) a batch is torch tensors in pinned host memory,
-so its copies to the card are asynchronous; else numpy arrays.  Images
+so its copies to the card are asynchronous; else numpy arrays.  With
+`shard` (rank, ranks) a loader reads and yields only rank's contiguous
+rows of each global batch (core/mesh.py's sharding).  Images
 are normalized f32 NHWC, or uint8 with `device_preprocess`; labels
 int32.  `input_pipeline="tfdata"` (zs3_tpu's tf.data stream) is refused.
 """
@@ -68,7 +70,12 @@ class DataLoader:
         prefetch: int = 2,
         transform_needs_rng: bool = True,
         pin_memory: bool = False,
+        shard: Tuple[int, int] = (0, 1),
     ):
+        if batch_size % shard[1]:
+            raise ValueError(f"train batch size {batch_size} must be divisible by the data "
+                             f"mesh axis ({shard[1]})")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.transform = transform
@@ -125,8 +132,11 @@ class DataLoader:
             # abandoned iterator must not leak this thread and its pool.
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
+                    rank, ranks = self.shard
                     for b in range(n_batches):
                         chunk = order[b * self.batch_size : (b + 1) * self.batch_size]
+                        per = len(chunk) // ranks
+                        chunk = chunk[rank * per:(rank + 1) * per]
                         samples = list(pool.map(self._load_one, chunk))
                         if stop.is_set() or not put(collate(samples, self.pin_memory)):
                             return
@@ -203,10 +213,11 @@ def _datasets(cfg: DataConfig, train: bool):
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
-def make_train_loader(cfg: DataConfig, pin_memory: bool = False) -> Tuple[DataLoader, int]:
+def make_train_loader(cfg: DataConfig, pin_memory: bool = False,
+                      shard: Tuple[int, int] = (0, 1)) -> Tuple[DataLoader, int]:
     """(train_loader, num_classes): shuffled, the last ragged batch
     dropped, augmented by train_transform (train_transform_spatial with
-    device_preprocess)."""
+    device_preprocess); rank's rows of each batch with `shard`."""
     if cfg.input_pipeline == "tfdata":
         raise NotImplementedError(
             "data.input_pipeline='tfdata' (zs3_tpu's tf.data stream) is not ported: its "
@@ -218,7 +229,7 @@ def make_train_loader(cfg: DataConfig, pin_memory: bool = False) -> Tuple[DataLo
     loader = DataLoader(
         dataset, cfg.batch_size,
         lambda s, rng: host_tf(s, rng, cfg.base_size, cfg.crop_size, cfg.ignore_index),
-        seed=cfg.shuffle_seed, num_workers=cfg.num_workers, pin_memory=pin_memory,
+        seed=cfg.shuffle_seed, num_workers=cfg.num_workers, pin_memory=pin_memory, shard=shard,
     )
     return loader, num_classes
 
@@ -236,9 +247,11 @@ def make_val_loader(cfg: DataConfig, pin_memory: bool = False) -> Tuple[DataLoad
 
 
 def make_data_loader(
-    cfg: DataConfig, pin_memory: bool = False
+    cfg: DataConfig, pin_memory: bool = False, shard: Tuple[int, int] = (0, 1)
 ) -> Tuple[DataLoader, DataLoader, int]:
-    """(train_loader, val_loader, num_classes), zs3_tpu's factory contract."""
-    train, num_classes = make_train_loader(cfg, pin_memory)
+    """(train_loader, val_loader, num_classes), zs3_tpu's factory contract;
+    the train loader yields rank's rows with `shard` (the val loader whole
+    batches, which the trainers pad and split)."""
+    train, num_classes = make_train_loader(cfg, pin_memory, shard)
     val, _ = make_val_loader(cfg, pin_memory)
     return train, val, num_classes

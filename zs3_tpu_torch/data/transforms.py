@@ -18,12 +18,13 @@ generator the step seeds (`batched_random_flip_device`).
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from PIL import Image, ImageFilter
+
+from zs3_tpu_torch.core.device import device_constant_cache
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -199,9 +200,10 @@ def unletterbox_pred(
     ).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant_cache(maxsize=8)
 def _mean_std(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """IMAGENET_MEAN/STD on `device`, uploaded once (outside inference mode)."""
+    """IMAGENET_MEAN/STD on `device`, uploaded once (outside inference mode;
+    anew under a trace, device_constant_cache)."""
     with torch.inference_mode(False):
         return (torch.from_numpy(IMAGENET_MEAN).to(device),
                 torch.from_numpy(IMAGENET_STD).to(device))
@@ -225,9 +227,14 @@ def batched_flip_device(
 
 
 def batched_random_flip_device(
-    images: torch.Tensor, labels: torch.Tensor, generator: torch.Generator
+    images: torch.Tensor, labels: torch.Tensor, generator: torch.Generator,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batched_flip_device with each sample flipped with probability 1/2,
-    the mask drawn from `generator` (on the images' device)."""
-    flip = torch.rand(images.shape[0], generator=generator, device=images.device) < 0.5
-    return batched_flip_device(images, labels, flip)
+    the mask drawn from `generator` (on the images' device).  As rank r of
+    `shard` (rank, ranks) the mask of the global batch is drawn and rank
+    r's rows kept."""
+    rank, ranks = shard
+    n = images.shape[0]
+    flip = torch.rand(n * ranks, generator=generator, device=images.device) < 0.5
+    return batched_flip_device(images, labels, flip[rank * n:(rank + 1) * n])

@@ -25,6 +25,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from zs3_tpu_torch.core.device import device_constant_cache
 from zs3_tpu_torch.ops.cuda_build import CudaLibrary
 from zs3_tpu_torch.ops.resize import _linear_matrix_np, resize_bilinear
 
@@ -171,7 +172,7 @@ def plan(shape, size, align_corners: bool = True, dtype: torch.dtype = torch.flo
     }
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant_cache(maxsize=64)
 def card_plan(shape: tuple, size: tuple, align_corners: bool, dtype: torch.dtype,
               device_index: int):
     """plan on a card's SMs, with its tables on the card, kept per shape:

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from zs3_tpu_torch.core.device import device_constant_cache
+
 
 @functools.lru_cache(maxsize=128)
 def _linear_matrix_np(
@@ -52,14 +54,15 @@ def _linear_matrix_np(
     return w
 
 
-@functools.lru_cache(maxsize=128)
+@device_constant_cache(maxsize=128)
 def _linear_matrix(
     in_size: int, out_size: int, align_corners: bool,
     device: torch.device, dtype: torch.dtype,
 ) -> torch.Tensor:
     """`_linear_matrix_np` on `device`, uploaded once: a copy from pageable
     host memory on every call would make the host wait for the stream.
-    Made outside inference mode, so autograd may save it later."""
+    Made outside inference mode, so autograd may save it later; built
+    anew under a trace (device_constant_cache)."""
     with torch.inference_mode(False):
         mat = _linear_matrix_np(in_size, out_size, align_corners)
         return torch.from_numpy(mat).to(device, dtype)
@@ -93,7 +96,7 @@ def resize_bilinear(
     return y[0] if squeeze else y
 
 
-@functools.lru_cache(maxsize=128)
+@device_constant_cache(maxsize=128)
 def _nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     # torch 'nearest' semantics: floor(i * in/out).
     idx = np.floor(np.arange(out_size) * in_size / out_size).astype(np.int64)

@@ -19,12 +19,14 @@ in a batched forward reaches every request of its group.  The GPU is
 the default device; `device="cpu"` serves from the plain PyTorch path.
 With `int8_calib_images` the predictor calibrates int8 scales on those
 image files once, at start-up (Predictor.quantize), and serves int8.
-Exported artifacts are not ported yet.
+With `artifact` it serves an exported labels artifact (zs3_tpu_torch.export)
+instead of a checkpoint: its fixed batch and size come from its manifest.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import io
 import json
 import queue
@@ -37,8 +39,48 @@ import torch
 from PIL import Image
 
 from zs3_tpu_torch.core.config import Config
+from zs3_tpu_torch.core.device import resolve_device
+from zs3_tpu_torch.data.transforms import letterbox_image, unletterbox_pred
 from zs3_tpu_torch.train.predict import Predictor
 from zs3_tpu_torch.utils.viz import decode_segmap
+
+
+class ArtifactPredictor:
+    """Predictor-like facade over an exported labels artifact
+    (zs3_tpu_torch.export): no model code, config or checkpoint.
+
+    The artifact has a fixed (batch, size) uint8 input with normalization
+    baked in; a request is letterboxed onto it as Predictor.predict_array
+    does (the ImageNet-mean padding normalizes to zero inside it), sent as
+    the whole fixed batch, and its labels cropped and resized back.
+    Sliding windows need live logits at any window and are refused.  On a
+    `device` other than the artifact's the program is moved there."""
+
+    def __init__(self, artifact_path: str, device: Union[str, torch.device] = "cuda"):
+        from zs3_tpu_torch.export import load_exported
+
+        with open(artifact_path + ".json") as f:
+            self.manifest = json.load(f)
+        if self.manifest.get("emit", "labels") != "labels":
+            raise ValueError("serving needs a labels artifact; this one emits "
+                             f"{self.manifest.get('emit')!r}")
+        self.batch = int(self.manifest["batch_size"])
+        self.size = int(self.manifest["crop_size"])
+        self.num_classes = int(self.manifest["num_classes"])
+        self.device = resolve_device(device)
+        self._call = load_exported(artifact_path, self.device)
+
+    def predict_array(self, image: np.ndarray) -> np.ndarray:
+        h, w = image.shape[:2]
+        canvas, content = letterbox_image(image, self.size)
+        batch = np.broadcast_to(canvas, (self.batch, self.size, self.size, 3))
+        pred = self._call(batch)[0]
+        return unletterbox_pred(pred, content, (h, w))
+
+    def predict_sliding(self, image: np.ndarray) -> np.ndarray:
+        raise ValueError(
+            "sliding-window inference is not available when serving an exported "
+            "artifact (fixed-shape labels graph); serve a checkpoint instead")
 
 
 class _MicroBatcher:
@@ -112,22 +154,39 @@ class SegmentationService:
         int8_calib_images: Optional[list] = None,
         device: Union[str, torch.device] = "cuda",
     ):
-        if artifact:
-            raise NotImplementedError(
-                "serving an exported artifact is not ported yet: see ROADMAP Queue 1, Export"
-            )
+        # Argument combinations are refused before the loads.
+        if artifact and serve_batch > 1:
+            raise ValueError("--serve-batch needs a live checkpoint predictor; an exported "
+                             "artifact has a fixed baked-in batch size")
+        if artifact and int8_calib_images:
+            raise ValueError("int8 calibration applies to a live checkpoint predictor; an "
+                             "exported artifact's numerics are baked in (pass --int8 to "
+                             "`export` instead)")
         self.cfg = cfg
         self.batcher: Optional[_MicroBatcher] = None
         self._lock = threading.Lock()
-        self.predictor = Predictor(cfg, checkpoint, device=device)
         self.int8_convs = 0
-        if int8_calib_images:
-            calib = [np.asarray(Image.open(p).convert("RGB")) for p in int8_calib_images]
-            self.int8_convs = self.predictor.quantize(
-                calib, percentile=cfg.train.int8_percentile)
-        if serve_batch > 1:
-            self.batcher = _MicroBatcher(self.predictor, serve_batch, device_lock=self._lock)
+        self.predictor: Union[Predictor, ArtifactPredictor]
+        if artifact:
+            self.predictor = ArtifactPredictor(artifact, device)
+            # The artifact describes itself: serve its true shape.
+            manifest = self.predictor.manifest
+            self.cfg = cfg.replace(
+                model=dataclasses.replace(cfg.model, num_classes=self.predictor.num_classes,
+                                          backbone=manifest.get("backbone", cfg.model.backbone)),
+                data=dataclasses.replace(cfg.data, crop_size=self.predictor.size),
+            )
+        else:
+            self.predictor = Predictor(cfg, checkpoint, device=device)
+            if int8_calib_images:
+                calib = [np.asarray(Image.open(p).convert("RGB")) for p in int8_calib_images]
+                self.int8_convs = self.predictor.quantize(
+                    calib, percentile=cfg.train.int8_percentile)
+            if serve_batch > 1:
+                self.batcher = _MicroBatcher(self.predictor, serve_batch,
+                                             device_lock=self._lock)
         self.serve_batch = serve_batch
+        self.source = "artifact" if artifact else "checkpoint"
         self.warm = False
 
     def warmup(self):
@@ -169,11 +228,12 @@ class SegmentationService:
             "num_classes": self.cfg.model.num_classes,
             "crop_size": self.cfg.data.crop_size,
             "output_stride": self.cfg.model.output_stride,
-            "compute_dtype": self.cfg.model.compute_dtype,
-            "fused_tail": self.cfg.model.fused_tail,
+            # An artifact's numerics are its own; its tail is always the plain one.
+            "compute_dtype": self.cfg.model.compute_dtype if self.source == "checkpoint" else None,
+            "fused_tail": self.cfg.model.fused_tail and self.source == "checkpoint",
             "device": str(self.predictor.device),
             "warm": self.warm,
-            "source": "checkpoint",
+            "source": self.source,
             "geometry": "letterbox",
             "int8_convs": self.int8_convs,
             "serve_batch": self.serve_batch,

@@ -30,6 +30,12 @@ With `train.int8_features` the frozen trunk extracts the step's features
 with int8 convs (quant.quantized(trunk scales), calibrated once on the
 first 2 val batches), and validation runs int8 too; `train.int8_eval`
 makes validation alone int8.
+
+Over the ranks of a process group (core/mesh.py) each rank extracts the
+features of its rows of the global batch; the features and labels are
+gathered, and every rank then runs the same sampling and the same
+generator and classifier updates on the global batch, so the parameters
+stay replicated, as in zs3_tpu's jit step.  Rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.config import Config, TrainConfig
 from zs3_tpu_torch.core.device import resolve_device
+from zs3_tpu_torch.core.mesh import Mesh, gather_rows, mesh_from_config
 from zs3_tpu_torch.data.loader import make_data_loader
 from zs3_tpu_torch.metrics.evaluator import Evaluator
 from zs3_tpu_torch.models.deeplab import DeepLab
@@ -58,7 +65,7 @@ from zs3_tpu_torch.ops.sampling import (
 )
 from zs3_tpu_torch.train.seen import (
     build_eval_model, calibrate_on_val, device_batch, preprocess_on_device, select_eval_step,
-    step_generator,
+    shard_of, step_generator, sum_confusion,
 )
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.saver import Saver
@@ -171,7 +178,9 @@ class ZS3Step:
     uninterrupted one would; the graph branch draws nothing.  `body` also takes the draws
     as an argument (tests feed it zs3_tpu's); the gradients of the last
     update stay in the parameters' `.grad`.  With `int8_scales` the trunk
-    extracts its features under quant.quantized(int8_scales).
+    extracts its features under quant.quantized(int8_scales).  Over a
+    `mesh` of several ranks the batch is this rank's rows; the features,
+    their labels and the batch's labels are gathered before sampling.
     """
 
     def __init__(
@@ -184,8 +193,10 @@ class ZS3Step:
         cfg: Config,
         seed: int,
         int8_scales: Optional[quant.Scales] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.model = model.eval()
+        self.mesh = mesh
         self.int8_scales = int8_scales
         self.generator = generator
         self.embeddings = embeddings
@@ -208,14 +219,18 @@ class ZS3Step:
 
     def features(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Frozen-trunk features (N, D) f32 and their labels (N,) at the
-        feature grid.  no_grad, not inference_mode: KernelSum saves the
+        feature grid, of the global batch (gathered over a mesh's ranks,
+        in rank order).  no_grad, not inference_mode: KernelSum saves the
         real features for its backward."""
         int8 = quant.quantized(self.int8_scales) if self.int8_scales else contextlib.nullcontext()
         with torch.no_grad(), int8:
             feats = self.model.forward_features(batch["image"])
         b, h, w, d = feats.shape
         labels = downsample_labels(batch["label"], (h, w))
-        return feats.reshape(-1, d).float(), labels.reshape(-1)
+        feats, labels = feats.reshape(-1, d).float(), labels.reshape(-1)
+        if self.mesh is not None:
+            feats, labels = gather_rows(feats, self.mesh), gather_rows(labels, self.mesh)
+        return feats, labels
 
     def draw(self, num_pixels: int, step: int) -> Draws:
         """(scores (C, N), noise1 (C, P, Z), noise2 (C, P, Z)) of step
@@ -297,14 +312,17 @@ class ZS3Step:
         if self.device_preprocess:
             if step is None:
                 raise ValueError("device_preprocess draws step `step`'s flips: pass step")
-            batch = preprocess_on_device(batch, self.seed, step)
+            batch = preprocess_on_device(batch, self.seed, step, shard_of(self.mesh))
         feats, labels = self.features(batch)
         u, noise1, noise2 = draws if draws is not None else self.draw(labels.shape[0], step)
         context = None
         if self.graph_context:
             real, real_mask, pix_idx = self.sample(feats, labels, u, return_indices=True)
-            grid_pixels = labels.shape[0] // batch["label"].shape[0]
-            context = self.context(batch["label"], pix_idx, real_mask, grid_pixels)
+            batch_labels = batch["label"]
+            if self.mesh is not None:
+                batch_labels = gather_rows(batch_labels, self.mesh)
+            grid_pixels = labels.shape[0] // batch_labels.shape[0]
+            context = self.context(batch_labels, pix_idx, real_mask, grid_pixels)
         else:
             real, real_mask = self.sample(feats, labels, u)
         mmd = self.generator_update(real, real_mask, noise1, context)
@@ -368,15 +386,18 @@ class GMMNTrainer:
 
     The trunk comes from cfg.train.resume (a `train-seen` checkpoint or a
     bare `.pt` state_dict) or a seeded init; the classifier starts from
-    the trunk's own, or with the generator from cfg.train.gmmn_resume."""
+    the trunk's own, or with the generator from cfg.train.gmmn_resume.
+    Over the ranks of a process group each rank loads its rows (ZS3Step);
+    rank 0 alone has a saver and a logger."""
 
     checkpoint_suffix = "-gmmn"
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
                  saver: Optional[Saver] = None):
         device = resolve_device(device)
+        self.mesh = mesh_from_config(cfg)
         self.train_loader, self.val_loader, num_classes = make_data_loader(
-            cfg.data, pin_memory=device.type == "cuda")
+            cfg.data, pin_memory=device.type == "cuda", shard=shard_of(self.mesh))
         if cfg.model.num_classes != num_classes:
             cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=num_classes))
         self.cfg = cfg
@@ -403,6 +424,7 @@ class GMMNTrainer:
             self.model, self.generator, extract_classifier(self.model),
             self.embeddings, unseen_mask.to(device), cfg, seed=cfg.train.seed + 2,
             int8_scales=self.trunk_int8_scales() if cfg.train.int8_features else None,
+            mesh=self.mesh,
         )
         # Validation runs int8 under int8_features too: the classifier was
         # trained on int8 features, and a float trunk is one it never saw.
@@ -417,10 +439,13 @@ class GMMNTrainer:
             # Carry the best-so-far across a resume (see SeenTrainer).
             self.best_hiou = float(
                 Saver.read_meta(cfg.train.gmmn_resume).get("best_metric", 0.0))
-        self.saver = saver or Saver(cfg.train.checkpoint_dir, cfg.data.dataset,
-                                    cfg.train.checkname + self.checkpoint_suffix, cfg,
-                                    keep=cfg.train.keep_checkpoints)
-        self.logger = MetricLogger(self.saver.directory)
+        self.saver: Optional[Saver] = None
+        self.logger: Optional[MetricLogger] = None
+        if self.mesh.is_writer:
+            self.saver = saver or Saver(cfg.train.checkpoint_dir, cfg.data.dataset,
+                                        cfg.train.checkname + self.checkpoint_suffix, cfg,
+                                        keep=cfg.train.keep_checkpoints)
+            self.logger = MetricLogger(self.saver.directory)
 
     def trunk_int8_scales(self) -> quant.Scales:
         """The frozen trunk's int8 scales (forward_features: the classifier,
@@ -468,25 +493,27 @@ class GMMNTrainer:
             "cls_ce": float(torch.stack(ces).mean()) if ces else float("nan"),
             "epoch_seconds": time.time() - t0,
         }
-        self.logger.log(self.global_step, stats, prefix="train")
+        if self.logger:
+            self.logger.log(self.global_step, stats, prefix="train")
         return stats
 
     def validate(self, epoch: int = 0) -> Dict[str, float]:
         """Zero-shot metrics of the current classifier; writes a
         checkpoint, `best` when the harmonic mIoU improved."""
         evaluator = Evaluator(self.num_classes, self.cfg.data.ignore_index, self.unseen)
-        for batch in self.val_loader:
-            evaluator.add_confusion(
-                self.eval_fn(self.model, self.step.cls, device_batch(batch, self.device))
-            )
+        evaluator.add_confusion(sum_confusion(
+            lambda b: self.eval_fn(self.model, self.step.cls, b), self.val_loader,
+            self.num_classes, self.device, self.cfg.data.ignore_index, self.mesh))
         report = evaluator.compute().as_dict()
-        self.logger.log(self.global_step, report, prefix="val")
         hiou = report.get("harmonic_miou") or 0.0
         is_best = hiou > self.best_hiou
         if is_best:
             self.best_hiou = hiou
-        self.saver.save_checkpoint(self.checkpoint_payload(), self.global_step, self.best_hiou,
-                                   is_best=is_best, extra={"epoch": epoch, **report})
+        if self.mesh.is_writer:
+            self.logger.log(self.global_step, report, prefix="val")
+            self.saver.save_checkpoint(self.checkpoint_payload(), self.global_step,
+                                       self.best_hiou, is_best=is_best,
+                                       extra={"epoch": epoch, **report})
         return report
 
     def fit(self) -> Dict[str, float]:
@@ -500,7 +527,7 @@ class GMMNTrainer:
             validated = interval > 0 and (epoch + 1) % interval == 0
             if validated:
                 report = self.validate(epoch)
-        if self.cfg.train.epochs and not validated:
+        if self.cfg.train.epochs and not validated and self.mesh.is_writer:
             # --no-val, or epochs after the last validation: checkpoints
             # are otherwise written by validate() alone.
             self.saver.save_checkpoint(self.checkpoint_payload(), self.global_step,

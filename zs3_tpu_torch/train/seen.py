@@ -24,6 +24,12 @@ fake-quantized operands (quant.qat()).
 `SeenTrainer` drives training, validation and checkpoints (Saver) as
 zs3_tpu's does; `evaluate` is `SeenTrainer(cfg).validate(epoch=0)`, the
 `cli evaluate` path, and writes a checkpoint as zs3_tpu's does.
+
+Over the ranks of a process group (core/mesh.py) each rank trains on its
+rows of the global batch, with BN statistics, loss and gradients of the
+global batch and the masks one rank would draw, so N ranks take one
+rank's step; validation pads, shards and sums the confusion; rank 0
+alone writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +46,7 @@ import torch
 from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.config import Config, TrainConfig
 from zs3_tpu_torch.core.device import resolve_device
+from zs3_tpu_torch.core.mesh import Mesh, all_reduce_, all_reduce_grads_, mesh_from_config
 from zs3_tpu_torch.data.loader import make_data_loader
 from zs3_tpu_torch.data.transforms import batched_normalize_device, batched_random_flip_device
 from zs3_tpu_torch.metrics.evaluator import Evaluator
@@ -73,16 +80,23 @@ def step_generator(seed: int, step: int, device: torch.device,
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def preprocess_on_device(batch: Batch, seed: int, step: int) -> Batch:
+def preprocess_on_device(batch: Batch, seed: int, step: int,
+                         shard: Tuple[int, int] = (0, 1)) -> Batch:
     """A device_preprocess batch (uint8 NHWC images, int32 labels) made
     ready for the step where it lies: images normalized, then each sample
     mirrored with probability 1/2 from step_generator(seed, step,
     FLIP_STREAM) (zs3_tpu's batched_normalize_device and
-    batched_random_flip_device)."""
+    batched_random_flip_device).  As rank r of `shard` (rank, ranks) the
+    batch is rank r's rows, flipped by those rows of the global mask."""
     images = batched_normalize_device(batch["image"])
     gen = step_generator(seed, step, images.device, FLIP_STREAM)
-    images, labels = batched_random_flip_device(images, batch["label"], gen)
+    images, labels = batched_random_flip_device(images, batch["label"], gen, shard)
     return {**batch, "image": images, "label": labels}
+
+
+def shard_of(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(rank, ranks) of `mesh`; (0, 1) without one."""
+    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
 
 
 def make_train_step(
@@ -92,13 +106,22 @@ def make_train_step(
     seed: int = 0,
     device_preprocess: bool = False,
     qat: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[DeepLab, SegOptimizer, Batch], Dict[str, torch.Tensor]]:
     """train_step(model, optimizer, batch) -> {"loss": mean loss}: one
     optimizer update of `model` on the batch (the effective batch when
     grad_accum > 1).  The gradients stay in the parameters' .grad.  With
     `device_preprocess` the batch's images are uint8, normalized and
     flipped in the step (preprocess_on_device).  With `qat` the forwards
-    and backwards run under quant.qat() (zs3_tpu's QAT train step)."""
+    and backwards run under quant.qat() (zs3_tpu's QAT train step).
+
+    Over a `mesh` of several ranks the batch is this rank's rows, and
+    `loss_fn` must be the mesh's (build_seg_loss(..., mesh=mesh): each
+    rank's share of the global mean).  The microbatches are each rank's
+    rows cut in grad_accum, as zs3_tpu's mesh step cuts them (microbatch
+    k is every rank's k-th sub-chunk), the gradients are summed over the
+    ranks once, after the last microbatch, and the loss returned is the
+    global batch's."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if loss_at not in ("full", "feature"):
@@ -110,15 +133,18 @@ def make_train_step(
             return loss_fn(logits.float(), resize_nearest(labels, tuple(logits.shape[1:3])))
         return loss_fn(model(images), labels)
 
+    shard = shard_of(mesh)
+
     def train_step(model: DeepLab, optimizer: SegOptimizer, batch: Batch):
         if device_preprocess:
-            batch = preprocess_on_device(batch, seed, optimizer.step)
+            batch = preprocess_on_device(batch, seed, optimizer.step, shard)
         images, labels = batch["image"], batch["label"]
         if images.shape[0] % grad_accum:
-            raise ValueError(f"batch size {images.shape[0]} is not divisible by grad_accum "
-                             f"{grad_accum}")
+            where = f" on each of {shard[1]} ranks" if shard[1] > 1 else ""
+            raise ValueError(f"batch size {images.shape[0]}{where} is not divisible by "
+                             f"grad_accum {grad_accum}")
         model.train()
-        set_dropout_generator(model, step_generator(seed, optimizer.step, images.device))
+        set_dropout_generator(model, step_generator(seed, optimizer.step, images.device), shard)
         optimizer.zero_grad()
         loss_sum = None
         with quant.qat() if qat else contextlib.nullcontext():
@@ -126,6 +152,8 @@ def make_train_step(
                 loss = micro_loss(model, mb_images, mb_labels)
                 loss.backward()
                 loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        if mesh is not None:
+            loss_sum = all_reduce_grads_(model.parameters(), mesh, extra=loss_sum)
         if grad_accum > 1:
             torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
                                 grad_accum)
@@ -191,6 +219,21 @@ def calibrate_on_val(
                                         percentile=percentile)
 
 
+def sum_confusion(eval_fn: Callable[[Batch], torch.Tensor], val_loader, num_classes: int,
+                  device: torch.device, ignore_index: int,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The (C, C) int64 confusion of `eval_fn` over `val_loader`; over a
+    `mesh`, of each rank's rows of every batch padded with inert rows,
+    summed over the ranks."""
+    from zs3_tpu_torch.core import mesh as mesh_lib
+
+    mesh = mesh or Mesh({"data": 1})
+    total = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
+    for batch in val_loader:
+        total += eval_fn(mesh_lib.device_batch(batch, mesh, ignore_index, device, eval=True))
+    return all_reduce_(total, mesh)
+
+
 def validate(
     model: DeepLab,
     val_loader,
@@ -199,18 +242,20 @@ def validate(
     device: Union[str, torch.device] = "cuda",
     train_cfg: TrainConfig = TrainConfig(),
     scales: Optional[quant.Scales] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, float]:
     """Run the eval step `train_cfg` selects over `val_loader`; returns the
     MetricReport dict (with seen/unseen/harmonic mIoU when unseen classes
-    are set).  int8_eval without `scales` calibrates on the val set."""
+    are set).  int8_eval without `scales` calibrates on the val set.  Over
+    a `mesh` the ranks split every batch (sum_confusion)."""
     device = resolve_device(device)
     if train_cfg.int8_eval and scales is None:
         scales = calibrate_on_val(model, val_loader, device, train_cfg.int8_percentile)
     evaluator = Evaluator(num_classes, data_cfg.ignore_index, data_cfg.unseen_classes)
     eval_step = select_eval_step(num_classes, data_cfg.ignore_index, train_cfg, scales)
     model.eval()
-    for batch in val_loader:
-        evaluator.add_confusion(eval_step(model, device_batch(batch, device)))
+    evaluator.add_confusion(sum_confusion(lambda b: eval_step(model, b), val_loader,
+                                          num_classes, device, data_cfg.ignore_index, mesh))
     return evaluator.compute().as_dict()
 
 
@@ -239,13 +284,16 @@ def build_eval_model(
 
 class SeenTrainer:
     """Step 1 of the pipeline: DeepLabv3+ on the seen classes, with
-    validation, checkpoints and metric logs (zs3_tpu.train.seen.SeenTrainer)."""
+    validation, checkpoints and metric logs (zs3_tpu.train.seen.SeenTrainer).
+    Over the ranks of a process group each rank loads and trains on its
+    rows (core/mesh.py); rank 0 alone has a saver and a logger."""
 
     def __init__(self, cfg: Config, device: Union[str, torch.device] = "cuda",
                  saver: Optional[Saver] = None):
         device = resolve_device(device)
+        self.mesh = mesh_from_config(cfg)
         self.train_loader, self.val_loader, num_classes = make_data_loader(
-            cfg.data, pin_memory=device.type == "cuda")
+            cfg.data, pin_memory=device.type == "cuda", shard=shard_of(self.mesh))
         if cfg.model.num_classes != num_classes:
             cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=num_classes))
         self.cfg = cfg
@@ -264,10 +312,10 @@ class SeenTrainer:
                 self.train_loader.dataset, num_classes, cfg.data.ignore_index,
                 cache_path=cache).to(device)
         self.loss_fn = build_seg_loss(cfg.optim.loss_type, cfg.data.ignore_index,
-                                      class_weights)
+                                      class_weights, mesh=self.mesh)
         self.train_step = make_train_step(
             self.loss_fn, cfg.optim.loss_at, cfg.train.grad_accum, cfg.train.seed,
-            cfg.data.device_preprocess, cfg.train.qat,
+            cfg.data.device_preprocess, cfg.train.qat, mesh=self.mesh,
         )
         model = init_deeplab(build_deeplab(cfg.model), cfg.train.seed)
         self.model = model.to(device=device, memory_format=torch.channels_last)
@@ -286,9 +334,13 @@ class SeenTrainer:
                 # after a crash cannot point 'best' at a worse model.
                 self.best_metric = float(
                     Saver.read_meta(cfg.train.resume).get("best_metric", 0.0))
-        self.saver = saver or Saver(cfg.train.checkpoint_dir, cfg.data.dataset,
-                                    cfg.train.checkname, cfg, keep=cfg.train.keep_checkpoints)
-        self.logger = MetricLogger(self.saver.directory, tensorboard=cfg.train.tensorboard)
+        self.saver: Optional[Saver] = None
+        self.logger: Optional[MetricLogger] = None
+        if self.mesh.is_writer:
+            self.saver = saver or Saver(cfg.train.checkpoint_dir, cfg.data.dataset,
+                                        cfg.train.checkname, cfg,
+                                        keep=cfg.train.keep_checkpoints)
+            self.logger = MetricLogger(self.saver.directory, tensorboard=cfg.train.tensorboard)
         self.history = []
 
     @property
@@ -308,11 +360,13 @@ class SeenTrainer:
                 break
             out = self.train_step(self.model, self.optimizer, device_batch(batch, self.device))
             losses.append(out["loss"])
-            if self.cfg.train.log_every and (i + 1) % self.cfg.train.log_every == 0:
+            if (self.logger and self.cfg.train.log_every
+                    and (i + 1) % self.cfg.train.log_every == 0):
                 self.logger.log(self.step, {"loss": float(out["loss"])}, prefix="train_step")
         loss = float(torch.stack(losses).mean()) if losses else float("nan")
         stats = {"epoch": epoch, "train_loss": loss, "epoch_seconds": time.time() - t0}
-        self.logger.log(self.step, stats, prefix="train")
+        if self.logger:
+            self.logger.log(self.step, stats, prefix="train")
         self.history.append(stats)
         return stats
 
@@ -330,16 +384,17 @@ class SeenTrainer:
         mIoU improved.  Under int8_eval the panels show the int8 model too."""
         scales = self.int8_scales()
         report = validate(self.model, self.val_loader, self.num_classes, self.cfg.data,
-                          self.device, self.cfg.train, scales)
-        if self.cfg.train.tensorboard:
-            quant.under(scales, self._log_panels)(next(iter(self.val_loader)))
-        self.logger.log(self.step, report, prefix="val")
+                          self.device, self.cfg.train, scales, self.mesh)
         metric = report["miou"]
         is_best = metric > self.best_metric
         if is_best:
             self.best_metric = metric
-        self.saver.save_checkpoint(self.checkpoint_payload(), self.step, self.best_metric,
-                                   is_best=is_best, extra={"epoch": epoch, **report})
+        if self.mesh.is_writer:
+            if self.cfg.train.tensorboard:
+                quant.under(scales, self._log_panels)(next(iter(self.val_loader)))
+            self.logger.log(self.step, report, prefix="val")
+            self.saver.save_checkpoint(self.checkpoint_payload(), self.step, self.best_metric,
+                                       is_best=is_best, extra={"epoch": epoch, **report})
         return report
 
     def _log_panels(self, batch):
@@ -370,7 +425,7 @@ class SeenTrainer:
                          and (epoch + 1) % self.cfg.train.eval_interval == 0)
             if validated:
                 last_report = self.validate(epoch)
-        if self.cfg.train.epochs and not validated:
+        if self.cfg.train.epochs and not validated and self.mesh.is_writer:
             # --no-val, or epochs after the last validation: checkpoints
             # are otherwise written by validate() alone.
             self.saver.save_checkpoint(self.checkpoint_payload(), self.step, self.best_metric,

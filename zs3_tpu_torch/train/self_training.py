@@ -43,7 +43,9 @@ from zs3_tpu_torch.data.transforms import letterbox_image, normalize, unletterbo
 from zs3_tpu_torch.models.deeplab import DeepLab
 from zs3_tpu_torch.ops.eval_kernels import predict_labels
 from zs3_tpu_torch.ops.resize import resize_bilinear
+from zs3_tpu_torch.core.mesh import all_reduce_
 from zs3_tpu_torch.train.gmmn import GMMNTrainer, splice_classifier
+from zs3_tpu_torch.train.seen import shard_of
 from zs3_tpu_torch.utils.saver import Saver
 
 PseudoStep = Callable[[DeepLab, torch.Tensor, torch.Tensor],
@@ -83,9 +85,11 @@ def generate_pseudo_labels(
     size: int = 513,
     ignore_index: int = 255,
     confidence: float = 0.0,
+    shard: Tuple[int, int] = (0, 1),
 ) -> int:
     """Write a pseudo-label PNG for every image of `dataset` whose tag set
-    holds an unseen class; returns the number written.
+    holds an unseen class; returns the number written.  As rank r of
+    `shard` (rank, ranks) only the images i with i % ranks == r.
 
     Runs `model` where it lies (it is moved nowhere).  Labelled pixels
     (a seen class or ignore) keep their GT; unlabelled ones take the
@@ -99,7 +103,8 @@ def generate_pseudo_labels(
     step = make_pseudo_label_step(confidence)
     model.eval()
     written = 0
-    for i in range(len(dataset)):
+    rank, ranks = shard
+    for i in range(rank, len(dataset), ranks):
         sample = dataset[i]
         gt = np.asarray(sample["label"])
         # Image-level tags: the unseen classes the annotator flagged.
@@ -193,7 +198,9 @@ class ZS5Trainer(GMMNTrainer):
 
     def pseudo_label(self) -> int:
         """Stage A with the trunk and the current classifier over the
-        train set's real annotation; returns the PNGs written."""
+        train set's real annotation; returns the PNGs written.  Over the
+        ranks of a process group each rank labels every ranks-th image,
+        and all of them return once every PNG is written."""
         # splice_classifier writes into self.model in place; the step's
         # features() stops before the classifier, so it reads nothing of it.
         model = splice_classifier(self.model, self.step.cls)
@@ -202,8 +209,11 @@ class ZS5Trainer(GMMNTrainer):
         int8 = (quant.quantized(self.trunk_int8_scales()) if self.cfg.train.int8_features
                 else contextlib.nullcontext())
         with int8:
-            return generate_pseudo_labels(
+            written = generate_pseudo_labels(
                 model, _gt_view(self.train_loader.dataset), self.unseen, self.pseudo_dir,
                 size=self.cfg.data.crop_size, ignore_index=self.cfg.data.ignore_index,
-                confidence=self.cfg.gmmn.pseudo_confidence,
+                confidence=self.cfg.gmmn.pseudo_confidence, shard=shard_of(self.mesh),
             )
+        # The sum waits for every rank's PNGs: the train loader reads them.
+        count = torch.tensor([written], dtype=torch.int64, device=self.device)
+        return int(all_reduce_(count, self.mesh)[0])

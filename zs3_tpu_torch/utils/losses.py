@@ -32,15 +32,30 @@ def _nll_and_weight(logits, labels, ignore_index, class_weights):
     return nll, w
 
 
+def _weighted_mean(values: torch.Tensor, w: torch.Tensor, mesh=None) -> torch.Tensor:
+    """sum(values * w) / sum(w).  Over the ranks of `mesh` the weight sum
+    is the global batch's (all-reduced, without gradient), so the ranks'
+    losses sum to the global batch's mean and their gradients sum to its
+    gradient."""
+    den = w.sum()
+    if mesh is not None and mesh.size > 1:
+        from zs3_tpu_torch.core.mesh import all_reduce_
+
+        den = all_reduce_(den.detach().clone(), mesh)
+    return (values * w).sum() / den.clamp(min=1.0)
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,
     labels: torch.Tensor,
     ignore_index: int = 255,
     class_weights: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
-    """Mean CE over non-ignored pixels. logits (..., C), labels (...)."""
+    """Mean CE over non-ignored pixels (this rank's share of the global
+    batch's mean, with a `mesh`). logits (..., C), labels (...)."""
     nll, w = _nll_and_weight(logits, labels, ignore_index, class_weights)
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    return _weighted_mean(nll, w, mesh)
 
 
 def focal_loss(
@@ -50,25 +65,29 @@ def focal_loss(
     gamma: float = 2.0,
     alpha: float = 0.5,
     class_weights: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """alpha * (1 - exp(-CE))^gamma * CE per valid pixel, averaged."""
     nll, w = _nll_and_weight(logits, labels, ignore_index, class_weights)
     fl = alpha * (1.0 - torch.exp(-nll)) ** gamma * nll
-    return (fl * w).sum() / w.sum().clamp(min=1.0)
+    return _weighted_mean(fl, w, mesh)
 
 
 def build_seg_loss(
     mode: str = "ce",
     ignore_index: int = 255,
     class_weights: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """loss(logits, labels); with a `mesh` of several ranks, this rank's
+    share of the global batch's mean (_weighted_mean)."""
     if mode == "ce":
         return lambda logits, labels: cross_entropy_loss(
-            logits, labels, ignore_index, class_weights
+            logits, labels, ignore_index, class_weights, mesh=mesh
         )
     if mode == "focal":
         return lambda logits, labels: focal_loss(
-            logits, labels, ignore_index, class_weights=class_weights
+            logits, labels, ignore_index, class_weights=class_weights, mesh=mesh
         )
     raise ValueError(f"unknown loss mode {mode!r}")
 
