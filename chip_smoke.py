@@ -88,7 +88,13 @@ just after:
     running cli.run: `train-seen` (bf16 513², and f32 65² with TF32 off),
     `train-gmmn` (K2 6 and K3 4 on each rank) and `evaluate` (K1 per eval
     batch on each rank) against one rank, with each rank's step time,
-    all-reduce share and peak memory.
+    all-reduce share and peak memory;
+  * spatial (zs3_tpu_torch/parallel/spatial.py): three gloo ranks on the
+    card split H of the R101 eval forward at 2049x2049 bf16 (K4 once a
+    rank on the os4 features gathered whole, and without the fused tail)
+    and 513x513 f32; two split the seen train step at 1024x1024 bf16 and
+    128x128 f32; each against one rank, with each rank's wall and device
+    ms, exchanges and peak memory.
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
@@ -2930,7 +2936,7 @@ def phase_zs5(seen_ckpt):
 
 DATA_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_data")
 DATA_STEPS = 2  # train steps of each data path
-DATA_EPOCHS = 3  # epochs of the VOC+SBD train loader timed, each alone
+DATA_EPOCHS = 2  # epochs of the VOC+SBD train loader timed, each alone
 DATA_FED_STEPS = 6  # seen steps timed in a window fed by the loader (2 before it)
 
 
@@ -3704,7 +3710,7 @@ def phase_int8():
 # by nature), each at full width (513x513, bf16, full depth, 21 classes,
 # unseen split 2) through every path.
 BACKBONES = (("xception", 16), ("mobilenet", 16), ("drn", 8))
-BB_SEEN_STEPS = 3
+BB_SEEN_STEPS = 2
 BB_ZS3_STEPS = 2
 BB_BATCH = 8
 
@@ -3899,7 +3905,7 @@ def phase_backbone(backbone: str, output_stride: int):
             step(model, batch)
 
     per_pass = sum(int(b["image"].shape[0]) for b in batches)
-    passes_per_sec, _ = rate_windows(one_pass, calls=2, windows=3)
+    passes_per_sec, _ = rate_windows(one_pass, calls=2, windows=2)
     prof = profile_device(one_pass, steps=1)
     numbers["eval"] = {"images_per_sec": per_pass * passes_per_sec,
                        "device_ms_per_image": prof["device_busy_ms"] / per_pass,
@@ -3924,7 +3930,7 @@ def phase_backbone(backbone: str, output_stride: int):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps_per_sec, _ = rate_windows(seen_step, calls=4, windows=3)
+    steps_per_sec, _ = rate_windows(seen_step, calls=4, windows=2)
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = profile_device(seen_step, steps=2)
     numbers["seen"] = {"steps_per_sec": steps_per_sec,
@@ -3986,7 +3992,7 @@ def phase_backbone(backbone: str, output_stride: int):
     canvases = np.stack([letterbox_image(img, 513)[0] for img in images])
     agree = fused_vs_standard(predictor, canvases, phase)
     frames = list(canvases)
-    batch_rate, _ = rate_windows(lambda: predictor.predict_batch(frames), calls=2, windows=3)
+    batch_rate, _ = rate_windows(lambda: predictor.predict_batch(frames), calls=2, windows=2)
     numbers["serve"] = {"fused_vs_standard": agree, "batch_groups": groups,
                         "predict_batch_images_per_sec": SERVE_BATCH * batch_rate}
     del server, predictor
@@ -4000,7 +4006,7 @@ def phase_backbone(backbone: str, output_stride: int):
         if mode == "fwd":
             trace = ["--trace-dir", os.path.join(CKPT_DIR, f"{backbone}-trace")]
         result, _, launches[f"profile_{mode}"], _, _ = run_path(
-            phase, ["profile", *common, *ckpt, "--mode", mode, "--steps", "3",
+            phase, ["profile", *common, *ckpt, "--mode", mode, "--steps", "2",
                     "--batch-size", str(BB_BATCH), *trace], lambda t: {})
         check(result["mode"] == mode and result["mean_step_ms"] > 0, phase,
               f"profile --mode {mode} gave {result}")
@@ -4120,15 +4126,16 @@ print(json.dumps({"imported": sorted(m for m in sys.modules if m.split(".")[0] i
 @contextlib.contextmanager
 def counting_space_to_batch(counts: dict):
     """Count the calls of models/layers.py's space-to-batch conv (a trace
-    calls it once per conv it routes), dense and grouped apart."""
+    calls it once per conv it routes), dense and grouped apart, and those
+    of a spatially sharded conv's window of rows (H padding 0) apart."""
     from zs3_tpu_torch.models import layers
 
     orig = layers.conv2d_space_to_batch
 
-    def counted(x, weight, bias, dilation, groups=1):
-        key = "grouped" if groups > 1 else "dense"
+    def counted(x, weight, bias, dilation, groups=1, pad_h=None):
+        key = ("grouped" if groups > 1 else "dense") + ("_windowed" if pad_h == 0 else "")
         counts[key] = counts.get(key, 0) + 1
-        return orig(x, weight, bias, dilation, groups)
+        return orig(x, weight, bias, dilation, groups, pad_h)
 
     layers.conv2d_space_to_batch = counted
     try:
@@ -4740,6 +4747,365 @@ def phase_data_parallel(seen_ckpt):
             "seen": ranks[0]["seen_bf16"]["launches"]}
 
 
+SP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_spatial")
+SP_SEED = 3
+SP_EVAL = {"bf16": (2049, "bfloat16"), "f32": (513, "float32")}  # case -> (H = W, dtype)
+SP_EVAL_RANKS = 3  # 2049 = 3 * 683 and 4 * (513 - 1) + 1: K4's geometry on the gathered os4
+SP_TRAIN = {"bf16": (1024, "bfloat16", 2), "f32": (128, "float32", 1)}  # case -> (H, dtype, steps)
+SP_TRAIN_RANKS = 2  # data 1 x space 2
+SP_BATCH = 2  # the train cases' global batch
+SP_F32_LOGITS = 1e-4  # sharded against one rank, of max |logit| (tests/test_spatial.py: 2e-4)
+# bf16: cuDNN picks other algorithms for a rank's window of rows than for
+# the whole image, so the sharded trunk rounds otherwise (1.5% of max |logit|
+# off the one-rank bf16 forward at 2049x2049, run 1 of PR 17).  Both bf16
+# forwards are held against the one-rank f32 forward (TF32 off) of the same
+# weights: the sharded one's largest logit error at most SP_BF16_NOISE times
+# the one-rank bf16 forward's own, and the labels the one-rank bf16 ones
+# outside near-ties, a tie where the one-rank top-2 gap is within
+# SP_BF16_NOISE times that own error.
+SP_BF16_NOISE = 2.0
+
+
+def sp_state() -> dict:
+    """The seeded R101 weights of the spatial phase (made once a process:
+    the seeded init of 60 M parameters takes seconds on the host)."""
+    from zs3_tpu_torch.core.config import ModelConfig
+    from zs3_tpu_torch.models.deeplab import build_deeplab, init_deeplab
+
+    if "spatial_state" not in MEASURED:
+        model = init_deeplab(build_deeplab(ModelConfig(backbone="resnet101")), SP_SEED)
+        MEASURED["spatial_state"] = model.state_dict()
+    return MEASURED["spatial_state"]
+
+
+def sp_model(dtype: str, fused_tail: bool = False, dropout: bool = False):
+    """R101 os16 (multigrid), 21 classes, seeded (sp_state), on the card."""
+    from zs3_tpu_torch.core.config import ModelConfig
+    from zs3_tpu_torch.models.deeplab import build_deeplab
+
+    cfg = ModelConfig(backbone="resnet101", num_classes=21, compute_dtype=dtype,
+                      fused_tail=fused_tail, dropout=dropout)
+    with torch.device("meta"):  # no host init: the weights are sp_state's
+        model = build_deeplab(cfg)
+    model = model.to_empty(device="cuda")
+    model.load_state_dict(sp_state())
+    return model.to(memory_format=torch.channels_last)
+
+
+def sp_images(hw: int, n: int = 1) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(SP_SEED + hw)
+    return torch.randn((n, hw, hw, 3), generator=gen).cuda()
+
+
+def sp_batch(hw: int) -> dict:
+    gen = torch.Generator().manual_seed(SP_SEED + 7 * hw)
+    labels = torch.randint(0, 21, (SP_BATCH, hw, hw), generator=gen, dtype=torch.int32)
+    labels[torch.rand(labels.shape, generator=gen) < 0.1] = 255
+    return {"image": sp_images(hw, SP_BATCH), "label": labels.cuda()}
+
+
+@contextlib.contextmanager
+def tf32_off(dtype: str):
+    """TF32 off for f32 (the parity setting), as it was for bf16."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if dtype == "float32":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def sp_eval(forward, x):
+    """One measured eval forward: (f32 logits on the host, K4 launches,
+    windowed space-to-batch convs, peak GiB, wall ms of 2 forwards after it,
+    the profiler's device busy ms and idle share of one)."""
+    from zs3_tpu_torch.utils.profiling import profile_device
+
+    forward(x)  # plans, cuDNN's choices
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    routes = {}
+    with counting_space_to_batch(routes):
+        logits = forward(x)
+        torch.cuda.synchronize()
+    launches = read_counts()["K4"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    for _ in range(2):
+        forward(x)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+    prof = profile_device(lambda: forward(x), steps=1)
+    return {"logits": logits.float().cpu(), "k4": launches, "routes": routes,
+            "peak_mem_gib": peak, "wall_ms": wall_ms, "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"]}
+
+
+def sp_train(step, model, optimizer, batch, steps: int):
+    """`steps` train steps: (losses, each step's wall ms, state on the host)."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(model, optimizer, batch)["loss"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return losses, step_ms, state
+
+
+def spatial_rank(rank: int, world: int, port: int):
+    """One rank of phase_spatial: joins a gloo group on the one card (CUDA
+    tensors), times every all-reduce (synchronized before and after), and
+    runs, on SP_EVAL_RANKS ranks, the sharded eval forwards of SP_EVAL
+    (bf16 with and without the fused tail, f32 with it) and, on
+    SP_TRAIN_RANKS, the sharded train steps of SP_TRAIN; writes what they
+    gave to SP_DIR/rank<r>_<world>.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from zs3_tpu_torch.core.config import Config, ModelConfig
+    from zs3_tpu_torch.core.mesh import make_mesh
+    from zs3_tpu_torch.parallel import spatial
+    from zs3_tpu_torch.train.state import SegOptimizer
+    from zs3_tpu_torch.utils.losses import build_seg_loss
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    collectives = [0.0, 0]
+    orig = dist.all_reduce
+
+    def all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = orig(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        collectives[0] += 1e3 * (time.perf_counter() - t0)
+        collectives[1] += 1
+        return work
+
+    dist.all_reduce = all_reduce
+    mesh = make_mesh((("space", world),))
+    block = spatial.spatial_batch_sharding(mesh, data_axis=None)
+    out = {}
+    if world == SP_EVAL_RANKS:
+        for case, (hw, dtype) in SP_EVAL.items():
+            x = block.take(sp_images(hw))
+            variants = ("fused", "portable") if case == "bf16" else ("fused",)
+            model = sp_model(dtype, fused_tail=True).eval()
+            with tf32_off(dtype):
+                for variant in variants:
+                    model.fused_tail = variant == "fused"
+                    forward = spatial.spatially_sharded_forward(model, mesh, data_axis=None)
+                    c0 = list(collectives)
+                    out[f"{case}_{variant}"] = sp_eval(forward, x)
+                    out[f"{case}_{variant}"]["all_reduces"] = collectives[1] - c0[1]
+            del model
+            torch.cuda.empty_cache()
+    else:
+        for case, (hw, dtype, steps) in SP_TRAIN.items():
+            batch = {k: block.take(v) for k, v in sp_batch(hw).items()}
+            with tf32_off(dtype):
+                model = sp_model(dtype, dropout=True)
+                cfg = Config(model=ModelConfig(backbone="resnet101", compute_dtype=dtype))
+                optimizer = SegOptimizer(model, cfg, steps)
+                step = spatial.spatially_sharded_train_step(
+                    build_seg_loss("ce", 255, mesh=mesh), mesh)
+                torch.cuda.reset_peak_memory_stats()
+                c0 = list(collectives)
+                losses, step_ms, state = sp_train(step, model, optimizer, batch, steps)
+                out[case] = {"losses": losses, "step_ms": step_ms,
+                             "collective_ms": collectives[0] - c0[0],
+                             "all_reduces": collectives[1] - c0[1],
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "digest": tensor_digest(state)}
+                if rank == 0:
+                    out[case]["state"] = state
+            del model, optimizer
+            torch.cuda.empty_cache()
+    torch.save(out, os.path.join(SP_DIR, f"rank{rank}_{world}.pt"))
+    dist.destroy_process_group()
+
+
+def run_ranks(phase: str, world: int, target: str, log_dir: str, timeout: float = 600):
+    """`world` processes `chip_smoke.<target>(rank, world, port)` on a
+    free port, each logging to log_dir/rank<r>_<world>.log; fails the
+    phase unless each exits 0.  Returns the wall seconds, start included."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(log_dir, f"rank{r}_{world}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as c; c.{target}({r}, {world}, {port})"],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc, log in procs:
+            proc.kill()
+            log.close()
+    for r, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(log_dir, f"rank{r}_{world}.log")) as f:
+                fail(phase, f"rank {r} of {world} exited {proc.returncode}: {f.read()[-3000:]}")
+    return time.time() - t0
+
+
+def phase_spatial():
+    """Spatial sharding (zs3_tpu_torch/parallel/spatial.py): ranks over
+    gloo on the one card (CUDA tensors), each a process (spatial_rank),
+    against one rank in this process, at full width (R101, os16,
+    multigrid, 21 classes, seeded weights):
+
+      (a) the bf16 eval forward at 2049x2049 on ("space", 3) with the
+          fused tail: K4 once on each rank, on the os4 features gathered
+          whole (1, 513, 513, 256); its logits and labels against the
+          one-rank bf16 forward's, both against the one-rank f32 forward
+          (SP_BF16_NOISE); the same without the fused tail; each rank's
+          peak memory, wall and device ms beside one rank's;
+      (b) the same forward in f32 (TF32 off) at 513x513 (uneven splits:
+          257 -> 129 -> 65 -> 33 rows over 3): logits within SP_F32_LOGITS
+          of max |logit| of one rank's;
+      (c) spatially_sharded_train_step on ("space", 2) (data 1), global
+          batch 2, dropout on: bf16 at 1024x1024 for 2 steps, f32 (TF32 off)
+          at 128x128 for 1: the ranks end bit-equal; the first loss and
+          the model's change (`rel_err`) within DP_TOLERANCE of one rank's.
+    Every dilated conv of the sharded forwards runs a window of rows, and
+    those of dilation >= 11 (the ASPP's 12 and 18) through space-to-batch,
+    never cuDNN's direct kernel (the route counts).  Ranks share one card:
+    their times are no scaling figure.  Returns each eval rank's K4
+    launches on (a)'s fused forward."""
+    from zs3_tpu_torch.core.config import Config, ModelConfig
+    from zs3_tpu_torch.train.seen import make_train_step
+    from zs3_tpu_torch.train.state import SegOptimizer
+    from zs3_tpu_torch.utils.losses import build_seg_loss
+
+    phase = "spatial"
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    os.makedirs(SP_DIR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = {w: run_ranks(phase, w, "spatial_rank", SP_DIR)
+            for w in (SP_EVAL_RANKS, SP_TRAIN_RANKS)}
+    evals = [torch.load(os.path.join(SP_DIR, f"rank{r}_{SP_EVAL_RANKS}.pt"), weights_only=True)
+             for r in range(SP_EVAL_RANKS)]
+    trains = [torch.load(os.path.join(SP_DIR, f"rank{r}_{SP_TRAIN_RANKS}.pt"),
+                         weights_only=True) for r in range(SP_TRAIN_RANKS)]
+    report = {"ranks_wall_seconds_with_start": wall}
+    failures = []
+
+    def expect(cond, message):
+        if not cond:
+            failures.append(message)
+
+    def per_rank(key, field):
+        return [r[key][field] for r in evals]
+
+    for case, (hw, dtype) in SP_EVAL.items():
+        x = sp_images(hw)
+        model = sp_model(dtype, fused_tail=True).eval()
+        for variant in (("fused", "portable") if case == "bf16" else ("fused",)):
+            key = f"{case}_{variant}"
+            model.fused_tail = variant == "fused"
+            with tf32_off(dtype):
+                one = sp_eval(torch.inference_mode()(model), x)
+            got = torch.cat([r[key]["logits"] for r in evals], 1)
+            want = one["logits"]
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max()) / scale
+            k4 = per_rank(key, "k4")
+            windowed = per_rank(key, "routes")
+            expect(k4 == [int(variant == "fused")] * SP_EVAL_RANKS
+                   and one["k4"] == int(variant == "fused"),
+                   f"{key}: K4 launches {k4} a rank, one rank {one['k4']}")
+            expect(all(r.get("dense_windowed") == 2 and set(r) == {"dense_windowed"}
+                       for r in windowed),
+                   f"{key}: space-to-batch routes {windowed}, not the ASPP's two windows")
+            entry = {"shape": [1, hw, hw, 21], "dtype": dtype,
+                     "max_abs_err_rel_to_max_logit": err, "max_abs_logit": scale,
+                     "k4_launches_per_rank": k4, "one_rank_k4_launches": one["k4"],
+                     "space_to_batch_routes_per_rank": windowed,
+                     "one_rank_space_to_batch_routes": one["routes"],
+                     "all_reduces_per_rank": per_rank(key, "all_reduces"),
+                     **{f"rank_{f}": per_rank(key, f) for f in (
+                         "peak_mem_gib", "wall_ms", "device_busy_ms", "idle_share")},
+                     **{f"one_rank_{f}": one[f] for f in (
+                         "peak_mem_gib", "wall_ms", "device_busy_ms", "idle_share")}}
+            if dtype == "float32":
+                expect(err <= SP_F32_LOGITS, f"{key}: logits {err} of max |logit| off")
+            else:
+                f32 = sp_model("float32", fused_tail=variant == "fused").eval()
+                with tf32_off("float32"), torch.inference_mode():
+                    truth = f32(x).float().cpu()
+                del f32
+                own = float((want - truth).abs().max())
+                sharded = float((got - truth).abs().max())
+                expect(sharded <= SP_BF16_NOISE * own,
+                       f"{key}: the sharded bf16 logits {sharded} off f32, the one-rank "
+                       f"bf16 {own}: beyond {SP_BF16_NOISE}x")
+                ties = near_ties(want, (hw, hw), SP_BF16_NOISE * own)
+                flips = got.argmax(-1) != want.argmax(-1)
+                bad = int((flips & ~ties).sum())
+                entry.update(one_rank_bf16_max_err_to_f32=own,
+                             sharded_bf16_max_err_to_f32=sharded,
+                             near_tie_gap=SP_BF16_NOISE * own, near_ties=int(ties.sum()),
+                             labels_differing=int(flips.sum()),
+                             labels_differing_outside_ties=bad)
+                expect(bad == 0, f"{key}: {bad} labels differ outside near-ties")
+                del truth
+            report[key] = entry
+            del got, want, one
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case, (hw, dtype, steps) in SP_TRAIN.items():
+        tol = DP_TOLERANCE["bf16" if dtype == "bfloat16" else "f32"]
+        with tf32_off(dtype):
+            start = sp_state()
+            model = sp_model(dtype, dropout=True)
+            cfg = Config(model=ModelConfig(backbone="resnet101", compute_dtype=dtype))
+            optimizer = SegOptimizer(model, cfg, steps)
+            step = make_train_step(build_seg_loss("ce", 255))
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_ms, state = sp_train(step, model, optimizer, sp_batch(hw), steps)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            del model, optimizer
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = trains[0][case], trains[1][case]
+        expect(a["digest"] == b["digest"] and a["losses"] == b["losses"],
+               f"train {case}: the ranks' models or losses differ")
+        first = abs(a["losses"][0] - losses[0]) / abs(losses[0])
+        err = rel_err(a["state"], state, start)
+        expect(first <= tol["first_loss"] and err["global"] <= tol["step"],
+               f"train {case}: two ranks against one beyond {tol}: first loss {first}, {err}")
+        report[f"train_{case}"] = {
+            "shape": [SP_BATCH, hw, hw, 3], "dtype": dtype, "steps": steps,
+            "losses": a["losses"], "one_rank_losses": losses, "first_loss_rel_err": first,
+            "step_rel_err": err, "tolerance": tol,
+            "rank_step_ms": [r[case]["step_ms"] for r in trains], "one_rank_step_ms": step_ms,
+            "rank_collective_ms": [r[case]["collective_ms"] for r in trains],
+            "all_reduces_per_rank": [r[case]["all_reduces"] for r in trains],
+            "rank_peak_mem_gib": [r[case]["peak_mem_gib"] for r in trains],
+            "one_rank_peak_mem_gib": peak}
+    if failures:
+        emit(phase=phase, **report, ok=False)
+        fail(phase, "; ".join(failures))
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    emit(phase=phase, backend="gloo, CUDA tensors, one card", **report, ok=True)
+    return report["bf16_fused"]["k4_launches_per_rank"]
+
+
 def phase_export_and_data_parallel_alone():
     """phase_export and phase_data_parallel on checkpoints of their own:
     `train-seen` and then `train-gmmn` at full width, one step each."""
@@ -4820,6 +5186,8 @@ def main() -> int:
     lap("export")
     dp_launches = phase_data_parallel(seen_ckpt)
     lap("data parallel")
+    sp_launches = phase_spatial()
+    lap("spatial")
     # K5 on the trunk train-seen trained and wrote, reloaded from its checkpoint.
     k5_launches, k5_errors, k5_timings = phase_bottleneck(build_eval_model(trunk_cfg, "cuda"),
                                                           images)
@@ -4924,6 +5292,7 @@ def main() -> int:
             "launches_infer": {m: v["launches"]["K4"] for m, v in infer_launches.items()},
             "launches_tta": tta_launches["K4"],
             "launches_backbones": bb_counts("K4"),
+            "launches_spatial_per_rank": sp_launches,
             "max_abs_err": k4["max_abs_err"],
             "max_err_in_tap_ulps": k4["max_err_in_tap_ulps"],
             "ms": k4["kernel_ms"],

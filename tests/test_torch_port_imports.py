@@ -56,7 +56,7 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
                  "data.context", "data.fabricate", "data.context_prepare",
                  "data.embedding_build", "data.loader", "data.transforms",
                  "models.xception", "models.mobilenet", "models.drn", "utils.convert",
-                 "utils.profiling", "export", "core.mesh"):
+                 "utils.profiling", "export", "core.mesh", "parallel", "parallel.spatial"):
         assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

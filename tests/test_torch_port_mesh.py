@@ -204,9 +204,11 @@ def test_zs3_step_on_two_ranks_is_the_one_rank_step(ranks, one_rank, case):
 
 
 def test_make_mesh_and_the_config_knobs(ranks):
-    """make_mesh's layouts and errors (zs3_tpu's messages), and the three
-    knobs of zs3_tpu's jit path: mesh_axes wired (the ranks' meshes),
-    bn_axis_name None or "data", donate_state True; the rest refused."""
+    """make_mesh's layouts and errors (zs3_tpu's messages), a space axis
+    (its indices; no process group of this size, so no space group), and
+    the three knobs of zs3_tpu's jit path: mesh_axes wired (the ranks'
+    meshes), bn_axis_name None or "data", donate_state True; the rest
+    refused."""
     results, _, _ = ranks
     assert [r["mesh"]["rank"] for r in results] == [0, 1]
     assert all(r["mesh"]["shape"] == {"data": 2} for r in results)
@@ -223,8 +225,9 @@ def test_make_mesh_and_the_config_knobs(ranks):
         mesh.make_mesh((("data", 4),), world=2)
     with pytest.raises(ValueError, match="leaves 1 of the 2"):
         mesh.make_mesh((("data", 1),), world=2)
-    with pytest.raises(NotImplementedError, match="Spatial"):
-        mesh.make_mesh((("data", 1), ("space", 2)), world=2)
+    spatial = mesh.make_mesh((("data", 1), ("space", 2)), world=2, rank=1)
+    assert (spatial.data_index, spatial.data_size, spatial.space_index,
+            spatial.space_size, spatial.space_group) == (0, 1, 1, 2, None)
     base = Config()
     for bn_axis in (None, "data"):
         cfg = base.replace(model=dataclasses.replace(base.model, bn_axis_name=bn_axis))

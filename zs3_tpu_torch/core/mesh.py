@@ -16,6 +16,16 @@ LOCAL_RANK):
   * eval batches are padded with inert rows (ignore_index labels) and
     the confusion matrices summed over the ranks.
 
+A `space` axis (H of the activations split over ranks,
+parallel/spatial.py) lays the ranks out row-major over the axes, as
+zs3_tpu's `np.array(devices).reshape(sizes)` does: the batch splits over
+the other axes (the data index, outer), and the ranks of one data index
+form a space group (`Mesh.space_group`, inner).  The trainers
+(`mesh_from_config`) hold each data block whole on every space rank, as
+zs3_tpu's trainers do (`shard_batch` over `data` alone): those replicas
+compute the same numbers, and only space index 0 adds them into a sum
+over the ranks (`Mesh.contributes`).
+
 Collectives are `all_reduce` and `broadcast` only, which both NCCL and
 gloo take on CUDA tensors; an all-gather is an all-reduce into a
 zero-filled buffer where each rank fills its own rows (`gather_rows`).
@@ -27,7 +37,7 @@ import dataclasses
 import datetime
 import math
 import os
-from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterable, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,15 +82,25 @@ def init_data_parallel(
     return dev
 
 
+SPACE = "space"  # the mesh axis H is split over (parallel/spatial.py)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data group: every rank of the process group, laid out as
-    `shape` ({"data": N}, or {"dcn": n, "data": m}: one group of n*m
-    ranks holding one global batch).  `rank` is this process's place in
-    it and `size` the number of ranks."""
+    """The ranks of the process group laid out row-major as `shape`
+    ({"data": N}; {"dcn": n, "data": m}: one group of n*m ranks holding one
+    global batch; {"data": d, "space": s}: H split over s ranks).  `rank`
+    is this process's place in it and `size` the number of ranks.  The
+    batch splits over every axis but `space` (`data_index` of
+    `data_size`); `space_group` is the process group of this rank's space
+    ranks (None without a space axis of several ranks or a process group).
+    With `space_replicas` every space rank holds its data block whole (the
+    trainers); else each holds its rows of H (parallel/spatial.py)."""
 
     shape: Dict[str, int]
     rank: int = 0
+    space_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    space_replicas: bool = False
 
     @property
     def size(self) -> int:
@@ -91,6 +111,55 @@ class Mesh:
         """Whether this rank writes checkpoints, logs and results (rank 0)."""
         return self.rank == 0
 
+    def index(self, axis: str) -> int:
+        """This rank's index on `axis` (0 for an axis the mesh lacks)."""
+        if axis not in self.shape:
+            return 0
+        indices = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return int(indices[list(self.shape).index(axis)])
+
+    @property
+    def space_size(self) -> int:
+        return self.shape.get(SPACE, 1)
+
+    @property
+    def space_index(self) -> int:
+        return self.index(SPACE)
+
+    @property
+    def data_size(self) -> int:
+        """The number of batch shards: the ranks of every axis but space."""
+        return self.size // self.space_size
+
+    @property
+    def data_index(self) -> int:
+        """This rank's batch shard: its indices on every axis but space,
+        row-major."""
+        index = 0
+        for name, n in self.shape.items():
+            if name != SPACE:
+                index = index * n + self.index(name)
+        return index
+
+    @property
+    def contributes(self) -> bool:
+        """Whether this rank adds its numbers into a sum over the ranks:
+        every rank, but only space index 0 of replicas."""
+        return not self.space_replicas or self.space_index == 0
+
+
+def space_groups(shape: Dict[str, int], rank: int):
+    """dist.new_group of every space group of `shape`, in one order on
+    every rank (new_group is collective); returns this rank's."""
+    sizes = tuple(shape.values())
+    grid = np.arange(math.prod(sizes)).reshape(sizes)
+    mine = None
+    for ranks in np.moveaxis(grid, list(shape).index(SPACE), -1).reshape(-1, shape[SPACE]):
+        group = dist.new_group(ranks.tolist())
+        if rank in ranks:
+            mine = group
+    return mine
+
 
 def make_mesh(
     axes: Sequence[Tuple[str, int]] = (("data", -1),),
@@ -99,18 +168,14 @@ def make_mesh(
 ) -> Mesh:
     """A Mesh of (axis name, size) pairs over the process group's ranks
     (`world`, `rank` default to the group's); size -1 takes the ranks the
-    other axes leave.  Every axis shards the batch: the sizes' product
-    must be the world size.  A `space` axis (H sharded over devices,
-    zs3_tpu.parallel.spatial) is refused."""
+    other axes leave.  The sizes' product must be the world size.  A
+    `space` axis of several ranks makes its process groups when the mesh
+    is the process group's (every rank must then call make_mesh)."""
     if rank is None:
         rank = dist.get_rank() if world_size() > 1 else 0
     world = world_size() if world is None else world
     names = [name for name, _ in axes]
     sizes = [int(size) for _, size in axes]
-    if "space" in names:
-        raise NotImplementedError(
-            "mesh axis 'space' (spatial sharding, zs3_tpu.parallel.spatial) is not "
-            "ported: see ROADMAP Queue 1, Spatial")
     n_wild = sum(1 for s in sizes if s == -1)
     if n_wild > 1:
         raise ValueError("at most one mesh axis may have size -1")
@@ -125,16 +190,22 @@ def make_mesh(
     if total < world:
         raise ValueError(f"mesh of {total} devices leaves {world - total} of the {world} "
                          "ranks without a shard of the batch")
-    return Mesh(dict(zip(names, sizes)), rank)
+    shape = dict(zip(names, sizes))
+    group = None
+    if shape.get(SPACE, 1) > 1 and world > 1 and world == world_size():
+        group = space_groups(shape, rank)
+    return Mesh(shape, rank, group)
 
 
 def mesh_from_config(cfg) -> Mesh:
-    """make_mesh(cfg.train.mesh_axes), after the knobs of zs3_tpu's jit
-    path that torch has no use for: `model.bn_axis_name` may be None or
-    "data" (BN takes the global batch's statistics whenever there is more
-    than one rank, as zs3_tpu's jit path does), `train.donate_state` must
-    be True (torch updates the state in place; there is no copy to
-    keep)."""
+    """make_mesh(cfg.train.mesh_axes) for the trainers, after the knobs of
+    zs3_tpu's jit path that torch has no use for: `model.bn_axis_name` may
+    be None or "data" (BN takes the global batch's statistics whenever
+    there is more than one rank, as zs3_tpu's jit path does),
+    `train.donate_state` must be True (torch updates the state in place;
+    there is no copy to keep).  Under a `space` axis the space ranks are
+    replicas of their data block, as zs3_tpu's trainers shard the batch
+    over `data` alone."""
     if cfg.model.bn_axis_name not in (None, "data"):
         raise ValueError(
             f"model.bn_axis_name={cfg.model.bn_axis_name!r}: the port's BatchNorm "
@@ -143,7 +214,8 @@ def mesh_from_config(cfg) -> Mesh:
         raise ValueError(
             "train.donate_state=False: torch updates the train state in place, so "
             "there is no undonated copy to keep; set it True")
-    return make_mesh(cfg.train.mesh_axes)
+    mesh = make_mesh(cfg.train.mesh_axes)
+    return dataclasses.replace(mesh, space_replicas=mesh.space_size > 1)
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -167,31 +239,33 @@ def pad_eval_batch(batch: dict, multiple: int, ignore_index: int = 255) -> dict:
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
-    """This rank's contiguous rows of every array of a global batch."""
+    """This rank's contiguous rows of every array of a global batch (its
+    data index's: the space ranks of one data index take the same rows)."""
     n = next(iter(batch.values())).shape[0]
-    if n % mesh.size:
-        raise ValueError(f"batch of {n} rows does not split over {mesh.size} ranks")
-    per = n // mesh.size
-    return {key: value[mesh.rank * per:(mesh.rank + 1) * per] for key, value in batch.items()}
+    shards, index = mesh.data_size, mesh.data_index
+    if n % shards:
+        raise ValueError(f"batch of {n} rows does not split over {shards} ranks")
+    per = n // shards
+    return {key: value[index * per:(index + 1) * per] for key, value in batch.items()}
 
 
 def _check_train_batch(n: int, mesh: Mesh):
-    if n % mesh.size:
+    if n % mesh.data_size:
         raise ValueError(f"train batch size {n} must be divisible by the data mesh axis "
-                         f"({mesh.size})")
+                         f"({mesh.data_size})")
 
 
 def device_batch(batch, mesh: Mesh, ignore_index: int, device: torch.device,
                  eval: bool = False):
     """This rank's part of one global host batch, on `device`: a train
-    batch must divide over the ranks; an eval batch is padded with inert
-    rows first."""
+    batch must divide over the batch shards; an eval batch is padded with
+    inert rows first."""
     from zs3_tpu_torch.train.seen import device_batch as to_device
 
     batch = {"image": batch["image"], "label": batch["label"]}
-    if mesh.size > 1:
+    if mesh.data_size > 1:
         if eval:
-            batch = pad_eval_batch(batch, mesh.size, ignore_index)
+            batch = pad_eval_batch(batch, mesh.data_size, ignore_index)
         else:
             _check_train_batch(batch["image"].shape[0], mesh)
         batch = shard_batch(batch, mesh)
@@ -199,8 +273,8 @@ def device_batch(batch, mesh: Mesh, ignore_index: int, device: torch.device,
 
 
 def bounded_train_batches(loader: Iterable, mesh: Mesh, max_steps: int) -> Iterator[dict]:
-    """Host batches of one epoch, each checked to divide over the ranks,
-    at most max_steps of them."""
+    """Host batches of one epoch, each checked to divide over the batch
+    shards, at most max_steps of them."""
     for i, batch in enumerate(loader):
         if i >= max_steps:
             break
@@ -209,43 +283,51 @@ def bounded_train_batches(loader: Iterable, mesh: Mesh, max_steps: int) -> Itera
 
 
 def all_reduce_(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum `tensor` over the ranks in place (nothing on one rank)."""
+    """Sum `tensor` over the ranks in place (nothing on one rank); a
+    replica that does not contribute adds zeros."""
     if mesh.size > 1:
+        if not mesh.contributes:
+            tensor.zero_()
         dist.all_reduce(tensor)
     return tensor
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the default group's ranks whose backward sums the
-    gradient too: every rank's output depends on every rank's input."""
+    """Sum over a group's ranks (the default group's for None) whose
+    backward sums the gradient too: every rank's output depends on every
+    rank's input."""
 
     @staticmethod
-    def forward(ctx, tensor):
+    def forward(ctx, tensor, group):
+        ctx.group = group
         out = tensor.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_autograd(tensor: torch.Tensor) -> torch.Tensor:
-    """`tensor` summed over the default group's ranks, differentiably."""
-    return _AllReduceSum.apply(tensor)
+def all_reduce_autograd(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """`tensor` summed over the ranks of `group` (the default group's for
+    None), differentiably."""
+    return _AllReduceSum.apply(tensor, group)
 
 
 def gather_rows(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The ranks' equal-sized `tensor`s stacked along dim 0 in rank order
-    (one rank: `tensor`).  An all-reduce into a zero-filled buffer where
-    each rank fills its own rows: x + 0 is x, so the rows arrive exact."""
+    """The batch shards' equal-sized `tensor`s stacked along dim 0 in data
+    index order (one shard: `tensor`).  An all-reduce into a zero-filled
+    buffer where each rank fills its own rows (a replica that does not
+    contribute fills none): x + 0 is x, so the rows arrive exact."""
     if mesh.size == 1:
         return tensor
-    n = tensor.shape[0]
-    out = tensor.new_zeros((n * mesh.size, *tensor.shape[1:]))
-    out[mesh.rank * n:(mesh.rank + 1) * n] = tensor
+    n, index = tensor.shape[0], mesh.data_index
+    out = tensor.new_zeros((n * mesh.data_size, *tensor.shape[1:]))
+    if mesh.contributes:
+        out[index * n:(index + 1) * n] = tensor
     dist.all_reduce(out)
     return out
 
@@ -254,12 +336,15 @@ def all_reduce_grads_(params: Iterable[torch.nn.Parameter], mesh: Mesh,
                       extra: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
     """Sum every parameter's .grad (and `extra`, a small f32 tensor such
     as the step's loss) over the ranks with one all-reduce of one flat
-    buffer; returns the summed `extra`.  Nothing moves on one rank."""
+    buffer; returns the summed `extra`.  Nothing moves on one rank; a
+    replica that does not contribute adds zeros."""
     if mesh.size == 1:
         return extra
     grads = [p.grad for p in params if p.grad is not None]
     parts = [g.reshape(-1) for g in grads] + ([extra.reshape(-1)] if extra is not None else [])
     flat = torch.cat(parts)
+    if not mesh.contributes:
+        flat.zero_()
     dist.all_reduce(flat)
     offset = 0
     for g in grads:

@@ -8,7 +8,9 @@ return NHWC tensors, as in zs3_tpu:
 
   forward(x)             -> f32 (or f64) logits at input resolution (N,H,W,C);
                             with fused_tail, in eval mode and at the exact
-                            4x geometry, through kernel K4 (ops/tail_kernels.py)
+                            4x geometry, through kernel K4 (ops/tail_kernels.py);
+                            under spatial sharding K4 takes the features
+                            gathered whole (parallel/spatial.py)
   forward_features(x)    -> 256-d pixel embedding at the os4 grid
   classify(feats)        -> logits at the feature grid
   upsample_logits(l, s)  -> align-corners bilinear to size s
@@ -44,6 +46,7 @@ from zs3_tpu_torch.models.resnet import ResNetAtrous
 from zs3_tpu_torch.models.xception import AlignedXception
 from zs3_tpu_torch.ops import tail_kernels
 from zs3_tpu_torch.ops.resize import resize_bilinear
+from zs3_tpu_torch.parallel import spatial
 
 RESNET_LAYERS = {
     "resnet": (3, 4, 23, 3),
@@ -138,19 +141,27 @@ class DeepLab(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         size = tuple(x.shape[1:3])
         feats = self.forward_features(x)
-        if (
-            self.fused_tail
-            and not self.training
-            and tail_kernels.supported(tuple(feats.shape[1:3]), size, self.num_classes)
-        ):
-            conv = self.classifier  # (K, C, 1, 1) -> (C, K)
-            w = conv.weight.detach()[:, :, 0, 0].t()
-            return tail_kernels.tail_logits(feats, w, conv.bias.detach(), size).float()
+        if self.fused_tail and not self.training:
+            def supported(grid, image):
+                return tail_kernels.supported(grid, image, self.num_classes)
+
+            if spatial.active():  # K4 on the features gathered whole
+                logits = spatial.fused_tail(feats, size, supported, self._fused_tail)
+                if logits is not None:
+                    return logits
+            elif supported(tuple(feats.shape[1:3]), size):
+                return self._fused_tail(feats, size)
         logits = self.classify(feats)
         # Upsample in the compute dtype, output f32 (as zs3_tpu does), or
         # the compute dtype when that is wider.
         logits = self.upsample_logits(logits, size)
         return logits.to(torch.promote_types(logits.dtype, torch.float32))
+
+    def _fused_tail(self, feats: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+        """classify + upsample in one launch of kernel K4 (f32 logits)."""
+        conv = self.classifier  # (K, C, 1, 1) -> (C, K)
+        w = conv.weight.detach()[:, :, 0, 0].t()
+        return tail_kernels.tail_logits(feats, w, conv.bias.detach(), size).float()
 
 
 def build_deeplab(cfg: ModelConfig) -> DeepLab:

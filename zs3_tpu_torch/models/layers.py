@@ -15,9 +15,17 @@ the global batch's statistics (core/mesh.py).  Dropout draws its masks
 from a torch.Generator the train step hands it (`set_dropout_generator`),
 never from the global RNG, so a resumed run draws what an uninterrupted
 one does, and N ranks draw what one rank draws.
+
+Under spatial sharding (parallel/spatial.py) the ops that read across
+rows take this rank's rows of H: Conv and max_pool_3x3_s2 fetch their
+window of rows, global_avg_pool sums over the space group, Dropout keeps
+its rows of the global mask.  On meta tensors (the sharding's planner)
+they compute shapes only.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 
 from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.mesh import all_reduce_autograd, world_size
+from zs3_tpu_torch.parallel import spatial
 
 # From this dilation on, a "same" conv runs as space-to-batch.  cuDNN's
 # bf16 NHWC engines on an H100 take a 3x3 conv up to dilation 10; from 11
@@ -43,29 +52,35 @@ GROUPED_SPACE_TO_BATCH_MIN_DILATION = 2
 
 
 def conv2d_space_to_batch(
-    x: torch.Tensor, weight: torch.Tensor, bias, dilation: int, groups: int = 1
+    x: torch.Tensor, weight: torch.Tensor, bias, dilation: int, groups: int = 1,
+    pad_h: Optional[int] = None,
 ) -> torch.Tensor:
-    """A stride-1 conv with dilation d and "same" padding d*(k-1)/2, as a
-    dilation-1 conv over the d*d residue classes of the input grid.
+    """A stride-1 conv with dilation d and "same" padding d*(k-1)/2 in W,
+    and `pad_h` in H (the same "same" for None; 0 for a window of rows
+    fetched whole under spatial sharding), as a dilation-1 conv over the
+    d*d residue classes of the input grid.
 
-    Output pixel (i, j) reads inputs (i + a*d, j + b*d), all of residue
-    (i mod d, j mod d), so each residue class is an ordinary conv with
-    padding (k-1)/2; zero-padding H and W up to multiples of d adds only
-    zeros the dilated conv would also read.  The products and their sums
-    are those of the dilated conv.  The residue classes only move pixels,
-    never channels, so a grouped conv keeps its `groups`.  NCHW in
-    (channels_last), NCHW out (channels_last).
+    Output pixel (i, j) reads inputs (i - pad_h + a*d, j + b*d), all of one
+    residue class, so each residue class is an ordinary conv with padding
+    pad_h/d in H and (k-1)/2 in W; zero-padding H and W up to multiples of
+    d adds only zeros the dilated conv would also read, or rows no kept
+    output reads.  The products and their sums are those of the dilated
+    conv.  The residue classes only move pixels, never channels, so a
+    grouped conv keeps its `groups`.  NCHW in (channels_last), NCHW out
+    (channels_last).
     """
     d = dilation
+    k = weight.shape[-1]
+    pad_h = d * (k - 1) // 2 if pad_h is None else pad_h
     b, c, h, w = x.shape
     hq, wq = -(-h // d), -(-w // d)
     xh = F.pad(x.permute(0, 2, 3, 1), (0, 0, 0, wq * d - w, 0, hq * d - h))
     xs = xh.reshape(b, hq, d, wq, d, c).permute(0, 2, 4, 1, 3, 5)
     xs = xs.reshape(b * d * d, hq, wq, c).permute(0, 3, 1, 2)
-    y = F.conv2d(xs, weight, bias, 1, (weight.shape[-1] - 1) // 2, 1, groups)
-    co = y.shape[1]
-    y = y.permute(0, 2, 3, 1).reshape(b, d, d, hq, wq, co).permute(0, 3, 1, 4, 2, 5)
-    y = y.reshape(b, hq * d, wq * d, co)[:, :h, :w]
+    y = F.conv2d(xs, weight, bias, 1, (pad_h // d, (k - 1) // 2), 1, groups)
+    co, ho = y.shape[1], y.shape[2]
+    y = y.permute(0, 2, 3, 1).reshape(b, d, d, ho, wq, co).permute(0, 3, 1, 4, 2, 5)
+    y = y.reshape(b, ho * d, wq * d, co)[:, :h + 2 * pad_h - d * (k - 1), :w]
     return y.contiguous().permute(0, 3, 1, 2)
 
 
@@ -80,7 +95,10 @@ class Conv(nn.Conv2d):
     input channels) whose `quant_path` has a scale under quant.quantized()
     runs as quant.int8_conv; else, under quant.qat() and not excluded, it
     runs the float conv on fake-quantized operands.  `quant_path` is the
-    conv's module name in its model (DeepLab sets it when built)."""
+    conv's module name in its model (DeepLab sets it when built).  Under
+    spatial sharding each route runs on the window of rows this rank's
+    output reads, with H padding 0 (fake quantization against the whole
+    level's |x| max)."""
 
     def __init__(
         self,
@@ -102,16 +120,28 @@ class Conv(nn.Conv2d):
         self.quant_path = ""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act_absmax = quant.scale_for(self.quant_path) if quant.quantizable(self) else None
+        fake_quant = (act_absmax is None and quant.quantizable(self) and quant.qat_active()
+                      and not quant.path_excluded(self.quant_path))
+        level_absmax = spatial.max_abs(x) if fake_quant else None
+        return spatial.windowed(
+            "conv", x, self.kernel_size[0], self.stride[0], self.padding[0], self.dilation[0],
+            lambda rows, pad_h: self._run(rows, pad_h, act_absmax, fake_quant, level_absmax))
+
+    def _run(self, x, pad_h, act_absmax, fake_quant, level_absmax) -> torch.Tensor:
+        """The conv with H padding `pad_h` (W padding as built)."""
+        padding = (pad_h, self.padding[1])
         weight = self.weight
+        if x.is_meta:  # the spatial planner's pass: shapes only
+            return F.conv2d(x, weight.to("meta"), None, self.stride, padding, self.dilation,
+                            self.groups)
         bias = None if self.bias is None else self.bias.to(self.compute_dtype)
-        if quant.quantizable(self):
-            act_absmax = quant.scale_for(self.quant_path)
-            if act_absmax is not None:
-                y = quant.int8_conv(x, weight, act_absmax, self.stride, self.padding,
-                                    self.dilation, self.compute_dtype)
-                return y if bias is None else y + bias[:, None, None]
-            if quant.qat_active() and not quant.path_excluded(self.quant_path):
-                x, weight = quant.fake_quant_conv_operands(x, weight)
+        if act_absmax is not None:
+            y = quant.int8_conv(x, weight, act_absmax, self.stride, padding, self.dilation,
+                                self.compute_dtype)
+            return y if bias is None else y + bias[:, None, None]
+        if fake_quant:
+            x, weight = quant.fake_quant_conv_operands(x, weight, level_absmax)
         x = x.to(self.compute_dtype)
         weight = weight.to(self.compute_dtype)
         d, k = self.dilation[0], self.kernel_size[0]
@@ -124,9 +154,8 @@ class Conv(nn.Conv2d):
             and self.kernel_size == (k, k)
             and self.padding == (d * (k - 1) // 2,) * 2
         ):
-            return conv2d_space_to_batch(x, weight, bias, d, self.groups)
-        return F.conv2d(x, weight, bias, self.stride, self.padding, self.dilation,
-                        self.groups)
+            return conv2d_space_to_batch(x, weight, bias, d, self.groups, pad_h)
+        return F.conv2d(x, weight, bias, self.stride, padding, self.dilation, self.groups)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -151,6 +180,8 @@ class BatchNorm(nn.BatchNorm2d):
         self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_meta:  # the spatial planner's pass: shapes only
+            return x
         if not self.training:
             return super().forward(x)
         if world_size() > 1:
@@ -185,10 +216,15 @@ def synced_batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     Then (x - mean) * (weight * rsqrt(var + eps)) + bias.  The all-reduce
     is differentiable, so the backward sums the statistics' gradients over
     the ranks too.  (nn.SyncBatchNorm takes CUDA tensors only, and keeps
-    the unbiased running variance.)"""
+    the unbiased running variance.)  A rank without values (no rows of
+    a spatially sharded level) adds count 0 and zero statistics, not the
+    NaN of an empty var_mean."""
     c = x.shape[1]
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+    if x.numel():
+        var_r, mean_r = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+    else:
+        var_r = mean_r = xf.sum(dim=(0, 2, 3))
     count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
     rank, ranks = dist.get_rank(), dist.get_world_size()
     row = torch.cat([mean_r, var_r, count])[None]
@@ -210,7 +246,9 @@ class Dropout(nn.Module):
     come from `generator` (set_dropout_generator), which train mode
     requires; eval mode is the identity.  As rank r of `shard` (rank,
     ranks) it draws the mask of the global batch (ranks times its rows)
-    and keeps its own rows, so N ranks draw one rank's masks."""
+    and keeps its own rows, so N ranks draw one rank's masks; under
+    spatial sharding the mask is the level's whole H too, of which it
+    keeps this rank's rows."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -221,21 +259,27 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
+        level = spatial.level_rows("dropout", x.shape[2])
+        if x.is_meta:
+            return x
         if self.generator is None:
             raise RuntimeError("Dropout in train mode draws from a generator: call "
                                "set_dropout_generator(model, generator) first")
         rank, ranks = self.shard
-        if ranks == 1:
+        if ranks == 1 and level is None:
             u = torch.empty_like(x, dtype=torch.float32)
         else:  # rows are outermost in both memory formats: a slice of rows
-            b = x.shape[0]
+            b, c, _, w = x.shape
+            height = x.shape[2] if level is None else level[0]
             channels_last = x.ndim == 4 and x.is_contiguous(memory_format=torch.channels_last)
-            u = torch.empty((b * ranks, *x.shape[1:]), dtype=torch.float32, device=x.device,
+            u = torch.empty((b * ranks, c, height, w), dtype=torch.float32, device=x.device,
                             memory_format=torch.channels_last if channels_last
                             else torch.contiguous_format)
         u = u.uniform_(generator=self.generator)
         if ranks > 1:
             u = u[rank * x.shape[0]:(rank + 1) * x.shape[0]]
+        if level is not None:
+            u = u[:, :, level[1]:level[2]]
         keep = 1.0 - self.rate
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -283,13 +327,18 @@ def stem_conv(in_channels: int = 3, features: int = 64, dtype=torch.float32) -> 
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """torch MaxPool2d(kernel_size=3, stride=2, padding=1)."""
-    return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+    """torch MaxPool2d(kernel_size=3, stride=2, padding=1) (under spatial
+    sharding, on the fetched window of rows, -inf outside the image)."""
+    return spatial.windowed(
+        "pool", x, 3, 2, 1, 1,
+        lambda rows, pad_h: F.max_pool2d(rows, kernel_size=3, stride=2, padding=(pad_h, 1)),
+        pad=float("-inf"))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> NC11 global average pool (AdaptiveAvgPool2d(1))."""
-    return x.mean(dim=(2, 3), keepdim=True)
+    """NCHW -> NC11 global average pool (AdaptiveAvgPool2d(1)); under
+    spatial sharding, over the whole level's rows."""
+    return spatial.mean_hw(x)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

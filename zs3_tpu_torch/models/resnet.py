@@ -26,6 +26,7 @@ from zs3_tpu_torch.models.layers import (
     to_nchw,
     to_nhwc,
 )
+from zs3_tpu_torch.parallel import spatial
 
 
 class Bottleneck(nn.Module):
@@ -74,20 +75,21 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.remat and self.training and torch.is_grad_enabled():
             # The recompute runs in the backward (on CUDA, on autograd's
-            # thread): it re-enters the forward's quantization state.
-            state = quant.current()
+            # thread): it re-enters the forward's quantization state and
+            # its place in a spatial sharding's plan.
+            state = quant.current(), spatial.current()
             return checkpoint(self._forward, x, use_reentrant=False,
                               context_fn=lambda: (contextlib.nullcontext(),
-                                                  self._recomputing(state)))
+                                                  self._recomputing(*state)))
         return self._forward(x)
 
     @contextlib.contextmanager
-    def _recomputing(self, quant_state):
+    def _recomputing(self, quant_state, space_state):
         bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
         for bn in bns:
             bn.update_stats = False
         try:
-            with quant.restored(quant_state):
+            with quant.restored(quant_state), spatial.restored(space_state):
                 yield
         finally:
             for bn in bns:

@@ -4,7 +4,10 @@ The reference upsamples with ``F.interpolate(..., mode='bilinear',
 align_corners=True)``.  As in zs3_tpu, the (out, in) interpolation
 matrix is built once per geometry on the host and applied as two
 products, H first and then W, so the arithmetic order matches the JAX
-package exactly.  Layout is NHWC (or HWC), as in zs3_tpu.
+package exactly.  Layout is NHWC (or HWC), as in zs3_tpu.  Under
+spatial sharding (parallel/spatial.py) the H pass takes the plan's global
+heights, fetches the source rows of this rank's output rows and applies
+the matching slice of the matrix (of the index, for nearest).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from zs3_tpu_torch.core.device import device_constant_cache
+from zs3_tpu_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=128)
@@ -86,9 +90,16 @@ def resize_bilinear(
     orig_dtype = x.dtype
     wdtype = torch.bfloat16 if orig_dtype == torch.bfloat16 else torch.float32
     y = x.to(wdtype)
-    if out_h != h:
-        wh = _linear_matrix(h, out_h, align_corners, y.device, wdtype)
-        y = torch.einsum("oh,bhwc->bowc", wh, y)
+
+    def sources(h_in, h_out):
+        taps = _linear_matrix_np(h_in, h_out, align_corners) != 0
+        return taps.argmax(1), h_in - taps[:, ::-1].argmax(1)
+
+    def apply(rows, h_in, h_out, o0, o1, c0):
+        wh = _linear_matrix(h_in, h_out, align_corners, rows.device, wdtype)
+        return torch.einsum("oh,bhwc->bowc", wh[o0:o1, c0:c0 + rows.shape[1]], rows)
+
+    y = spatial.resample_rows("bilinear", y, out_h, sources, apply)
     if out_w != w:
         ww = _linear_matrix(w, out_w, align_corners, y.device, wdtype)
         y = torch.einsum("ow,bhwc->bhoc", ww, y)
@@ -96,12 +107,16 @@ def resize_bilinear(
     return y[0] if squeeze else y
 
 
-@device_constant_cache(maxsize=128)
-def _nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+def _nearest_index_np(in_size: int, out_size: int) -> np.ndarray:
     # torch 'nearest' semantics: floor(i * in/out).
     idx = np.floor(np.arange(out_size) * in_size / out_size).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
+
+
+@device_constant_cache(maxsize=128)
+def _nearest_index(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
-        return torch.from_numpy(np.clip(idx, 0, in_size - 1)).to(device)
+        return torch.from_numpy(_nearest_index_np(in_size, out_size)).to(device)
 
 
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -109,10 +124,18 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]
-    h, w = x.shape[1], x.shape[2]
+    w = x.shape[2]
     out_h, out_w = size
-    if out_h != h:
-        x = x.index_select(1, _nearest_index(h, out_h, x.device))
+
+    def sources(h_in, h_out):
+        idx = _nearest_index_np(h_in, h_out)
+        return idx, idx + 1
+
+    def apply(rows, h_in, h_out, o0, o1, c0):
+        index = _nearest_index(h_in, h_out, rows.device)[o0:o1]
+        return rows.index_select(1, index - c0 if c0 else index)
+
+    x = spatial.resample_rows("nearest", x, out_h, sources, apply)
     if out_w != w:
         x = x.index_select(2, _nearest_index(w, out_w, x.device))
     return x[0] if squeeze else x

@@ -160,16 +160,23 @@ def _snap(value: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_conv_operands(
-    x: torch.Tensor, weight: torch.Tensor, act_absmax: Optional[float] = None
+    x: torch.Tensor, weight: torch.Tensor,
+    act_absmax: Optional[Union[float, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize-dequantize conv operands onto the int8 grid (QAT).
 
-    The activation per tensor, against `act_absmax` when given, else the
-    batch's own |x| max; the OIHW weight per output channel.  The grid math
-    runs in f32, and gradients pass straight through both roundings:
+    The activation per tensor, against `act_absmax` when given (a float,
+    or a 0-dim f32 tensor: the whole level's under spatial sharding), else
+    the batch's own |x| max; the OIHW weight per output channel.  The grid
+    math runs in f32, and gradients pass straight through both roundings:
     x + (q(x) - x).detach()."""
     xf = x.float()
-    amax = xf.abs().amax().detach() if act_absmax is None else _f32(act_absmax, x.device)
+    if act_absmax is None:
+        amax = xf.abs().amax().detach()
+    elif isinstance(act_absmax, torch.Tensor):
+        amax = act_absmax
+    else:
+        amax = _f32(act_absmax, x.device)
     s_act = amax.clamp_min(1e-8) / _f32(127.0, x.device)
     xq = _snap(xf, s_act) * s_act
     x_fq = (xf + (xq - xf).detach()).to(x.dtype)

@@ -29,7 +29,9 @@ Over the ranks of a process group (core/mesh.py) each rank trains on its
 rows of the global batch, with BN statistics, loss and gradients of the
 global batch and the masks one rank would draw, so N ranks take one
 rank's step; validation pads, shards and sums the confusion; rank 0
-alone writes checkpoints and logs.
+alone writes checkpoints and logs.  Under a `space` mesh axis the
+trainers hold each data block whole on every space rank, as zs3_tpu's
+do; parallel/spatial.py's train step splits H over them instead.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from zs3_tpu_torch.models.layers import set_dropout_generator
 from zs3_tpu_torch.ops.confusion import confusion_matrix
 from zs3_tpu_torch.ops.eval_kernels import predict_labels
 from zs3_tpu_torch.ops.resize import resize_nearest
+from zs3_tpu_torch.parallel import spatial
 from zs3_tpu_torch.train.state import SegOptimizer
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.losses import build_seg_loss, compute_dataset_class_weights
@@ -95,8 +98,21 @@ def preprocess_on_device(batch: Batch, seed: int, step: int,
 
 
 def shard_of(mesh: Optional[Mesh]) -> Tuple[int, int]:
-    """(rank, ranks) of `mesh`; (0, 1) without one."""
-    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    """(batch shard, batch shards) of `mesh`: its data index and size, the
+    same on the space ranks of one data index; (0, 1) without one."""
+    return (0, 1) if mesh is None else (mesh.data_index, mesh.data_size)
+
+
+def forward_for_loss(model: DeepLab, images: torch.Tensor, labels: torch.Tensor,
+                     loss_at: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits, labels) the seen loss compares: at full resolution
+    ("full"), or at the os4 grid ("feature": forward_features -> classify,
+    labels resized nearest to the logits' grid; the full-resolution logits
+    never exist)."""
+    if loss_at == "feature":
+        logits = model.classify(model.forward_features(images))
+        return logits.float(), resize_nearest(labels, tuple(logits.shape[1:3]))
+    return model(images), labels
 
 
 def make_train_step(
@@ -121,17 +137,26 @@ def make_train_step(
     rows cut in grad_accum, as zs3_tpu's mesh step cuts them (microbatch
     k is every rank's k-th sub-chunk), the gradients are summed over the
     ranks once, after the last microbatch, and the loss returned is the
-    global batch's."""
+    global batch's.  A mesh with a `space` axis of several ranks that are
+    not replicas (make_mesh's; parallel/spatial.py's train step) takes
+    this rank's rows of H too: each microbatch's forward runs under the
+    spatial sharding of its plan."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if loss_at not in ("full", "feature"):
         raise ValueError(f"loss_at must be 'full' or 'feature', got {loss_at!r}")
+    planner = None
+    if mesh is not None and mesh.space_size > 1 and not mesh.space_replicas:
+        planner = spatial.Planner(mesh)
+
     def micro_loss(model: DeepLab, images: torch.Tensor, labels: torch.Tensor):
-        if loss_at == "feature":
-            # The loss at the os4 grid: the full-resolution logits never exist.
-            logits = model.classify(model.forward_features(images))
-            return loss_fn(logits.float(), resize_nearest(labels, tuple(logits.shape[1:3])))
-        return loss_fn(model(images), labels)
+        def forward(x, y):
+            return forward_for_loss(model, x, y, loss_at)
+
+        if planner is None:
+            return loss_fn(*forward(images, labels))
+        with planner.sharded(forward, model, images, labels):
+            return loss_fn(*forward(images, labels))
 
     shard = shard_of(mesh)
 
