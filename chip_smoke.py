@@ -95,6 +95,18 @@ just after:
     and 513x513 f32; two split the seen train step at 1024x1024 bf16 and
     128x128 f32; each against one rank, with each rank's wall and device
     ms, exchanges and peak memory.
+  * rehearsal (zs3_tpu_torch/release_rehearsal.py, `rehearse` at its
+    card defaults): fabricated VOC+SBD trees and a torchvision-shaped
+    R101 .pth, then convert-weights, train-seen --ft (25 steps),
+    train-gmmn --int8-features, train-zs5, evaluate, evaluate --int8,
+    the QAT fine-tune and its int8 evaluation, evaluate-gmmn with TTA,
+    the synthetic zero-shot stage at acceptance depth (ResNet-50 at
+    49x49, f32: seen, ZS3 and its int8 validation, ZS5), export and
+    serve, with the no-op runs (train-seen at LR 0, the ZS3 leg at a
+    generator LR of 0); every bar of the card asserted and each above its
+    no-op run, within 300 s; K1/K2/K3 counted per stage, and K1 on the
+    synthetic stage's eval and pseudo-label logits and K2/K3 on its ZS3
+    step's own inputs against their plain versions.
 
 It checks that what comes out is right, times and profiles the loops,
 and compares the port on the card with the port on the CPU at a small
@@ -452,6 +464,7 @@ def phase_kernels():
         ((1, 9, 11, 7), (33, 45), bf16, False),
         ((2, 17, 17, 21), (65, 65), f32, False),
         ((2, 33, 33, 21), (9, 9), f32, False),        # downsample: runs of one
+        ((8, 13, 13, 10), (49, 49), f32, False),      # the rehearsal's synthetic eval
         ((1, 33, 129, 128), (65, 513), f32, False),   # 138 KB of shared memory
         ((1, 33, 129, 128), (65, 513), bf16, False),
     ]
@@ -484,11 +497,12 @@ def phase_kernels():
             )
             timings[(shape[0], shape[-1], row["dtype"])] = row
         emit(**row)
-    # ZS5's restricted logits at a 4x and a ragged geometry, and as the
-    # Context pseudo-label pass makes them (one image, 59 classes, timed):
+    # ZS5's restricted logits at a 4x and a ragged geometry, at the
+    # rehearsal's synthetic pseudo-label pass's, and as the Context
+    # pseudo-label pass makes them (one image, 59 classes, timed):
     # only allowed classes, the plain version's labels.
     for shape, size in (((4, 129, 129, 21), (513, 513)), ((2, 11, 11, 21), (45, 45)),
-                        ((1, 129, 129, 59), (513, 513))):
+                        ((1, 13, 13, 10), (49, 49)), ((1, 129, 129, 59), (513, 513))):
         logits, allowed = restricted_logits(gen, shape)
         got = upsample_argmax(logits, size)
         want = upsample_argmax_reference(logits, size)
@@ -5106,6 +5120,149 @@ def phase_spatial():
     return report["bf16_fused"]["k4_launches_per_rank"]
 
 
+REHEARSAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_rehearsal")
+REHEARSAL_BUDGET_S = 300
+# Stages of the rehearsal that run K1 (single-scale eval steps, the ZS5
+# pseudo-label pass) and K2/K3 (generator steps).  evaluate-gmmn runs
+# ms+flip TTA, whose argmax of averaged probabilities is not K1's.
+REHEARSAL_K1 = ("train-seen", "train-gmmn", "train-zs5", "evaluate", "evaluate-int8",
+                "qat-finetune+int8", "zero-shot-synthetic", "noop-train-seen-lr0")
+REHEARSAL_K2_K3 = ("train-gmmn", "train-zs5", "zero-shot-synthetic")
+
+
+def rehearsal_kernels(workdir: str) -> dict:
+    """K1, K2 and K3 on the inputs the rehearsal's synthetic stage gives
+    them, from the seen trunk it trained: K1 on the ZS3 eval step's f32
+    logits of the first validation batch, and on one image's logits
+    restricted as the ZS5 pseudo-label pass makes them; K2 and K3 on the
+    first ZS3 step (the generator at its seeded init, the first batch and
+    draws).  Each against its plain version, K2/K3 then timed at those
+    shapes beside their bounds.  Returns K1's and check_k2_k3's errors,
+    the MMD shape, and a "K2" and a "K3" row."""
+    import numpy as np
+
+    from zs3_tpu_torch import release_rehearsal as rr
+    from zs3_tpu_torch.ops import mmd_kernels as mk
+    from zs3_tpu_torch.ops.eval_kernels import upsample_argmax, upsample_argmax_reference
+    from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+    from zs3_tpu_torch.train.gmmn import GMMNTrainer, splice_classifier
+    from zs3_tpu_torch.train.seen import device_batch
+
+    phase = "rehearsal"
+    run_dir = os.path.join(workdir, "run")
+    cfg = rr.synthetic_config(run_dir, 1)
+    trunk = rr.best_or_latest(cfg.train.checkpoint_dir, "synthetic", cfg.train.checkname)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, resume=trunk, checkpoint_dir=os.path.join(SCRATCH, "rehearsal_kernels")))
+    trainer = GMMNTrainer(cfg, device="cuda")
+    model = splice_classifier(trainer.model, trainer.step.cls)
+    images = device_batch(next(iter(trainer.val_loader)), torch.device("cuda"))["image"]
+    size = tuple(images.shape[1:3])
+    with torch.inference_mode():
+        logits = model.classify(model.forward_features(images)).float()
+    allowed = torch.ones(trainer.num_classes, dtype=torch.bool, device="cuda")
+    allowed[list(trainer.unseen)] = False
+    allowed[trainer.unseen[0]] = True  # an image tagged with one unseen class
+    restricted = torch.where(allowed, logits[:1], torch.finfo(torch.float32).min).contiguous()
+    k1 = {}
+    for what, x in (("eval", logits), ("pseudo-label", restricted)):
+        got = upsample_argmax(x, size)
+        want = upsample_argmax_reference(x, size)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == torch.int32, phase,
+              f"K1 {what}: got {tuple(got.shape)} {got.dtype}")
+        ties, err = compare_labels(got, want, x, size, phase, f"K1 on the synthetic {what} logits")
+        if what == "pseudo-label":
+            check(bool(allowed[got.long()].all()), phase, f"K1 {what}: a class not allowed won")
+        k1[what] = {"shape": list(x.shape), "size": list(size), "near_ties": ties,
+                    "max_abs_err": err, "classes": int(np.unique(got.cpu()).size)}
+
+    fake, real, fake_mask, real_mask = step_mmd_inputs(trainer)
+    errors = check_k2_k3(fake, real, fake_mask, real_mask, "rehearsal synthetic ZS3 step")
+    c, n, d = fake.shape
+    m = real.shape[1]
+    bounds = mmd_bounds(c, n, m, d, len(sig))
+    rows = {"K1": k1, "shape": [c, n, m, d], **errors}
+    for name, kernel, plain in (
+        ("K2", lambda: mk.kernel_sum(fake, real, fake_mask, real_mask, sig),
+         lambda: mk.kernel_sum_reference(fake, real, fake_mask, real_mask, sig)),
+        ("K3", lambda: mk.kernel_sum_grad(fake, real, fake_mask, real_mask, sig,
+                                          with_dwx=False),
+         lambda: mk.kernel_sum_grad_reference(fake, real, fake_mask, real_mask, sig,
+                                              with_dwx=False)),
+    ):
+        rows[name] = {"kernel_ms": time_ms(kernel, what=f"{name} rehearsal"),
+                      "plain_ms": time_ms(plain, what=f"{name} plain rehearsal"),
+                      "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                      "library_ms": None}
+    rows["K2"]["plan"] = {k: v for k, v in mk.sum_plan(c, n, m, d).items()
+                          if k in ("split", "ctas", "pairs_per_cta")}
+    rows["K3"]["plan"] = {k: v for k, v in mk.grad_plan(c, n, m, d).items()
+                          if k in ("ctas", "cluster")}
+    del trainer, model
+    shutil.rmtree(os.path.join(SCRATCH, "rehearsal_kernels"), ignore_errors=True)
+    return rows
+
+
+def phase_rehearsal():
+    """The release rehearsal (zs3_tpu_torch/release_rehearsal.py) at its
+    card defaults: R101 at 513², batch 4, bf16, 2 steps a stage, 25
+    train-seen steps, TTA scales 0.75,1.0, the synthetic zero-shot stage at
+    acceptance depth, and the no-op runs; every stage through cli.run, every
+    bar of the card asserted and each above its no-op run, within
+    REHEARSAL_BUDGET_S.  Then each stage's K1/K2/K3 launches, and K1, K2
+    and K3 on the synthetic stage's own inputs against their plain
+    versions.  Returns {"stages": {stage: launches}, "kernels":
+    rehearsal_kernels' rows}."""
+    from zs3_tpu_torch import release_rehearsal as rr
+
+    phase = "rehearsal"
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+    reset_counts()
+    t0 = time.time()
+    summary = rr.rehearse(REHEARSAL_DIR, noop=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    per_stage = summary["stage_launches"]
+    for stage, seconds in summary["stage_seconds"].items():
+        emit(phase=phase, stage=stage, seconds=seconds, launches=per_stage[stage])
+    metrics, bars = summary["metrics"], summary["bars"]
+    noop = {key: metrics[n] for n, keys in rr.NOOPS.items() for key in keys if n in metrics}
+    emit(phase=phase, bars=bars, measured={k: metrics[k] for k in bars}, noop=noop,
+         int8_miou_delta=metrics["int8_miou_delta"], metrics=metrics)
+    check(set(bars) == set(rr.SEEN_BARS["cuda"]) | set(rr.ZERO_SHOT_BARS["cuda"])
+          and set(noop) == {k for keys in rr.NOOPS.values() for k in keys}, phase,
+          f"bars {sorted(bars)} or no-op values {sorted(noop)} missing")
+    check(wall <= REHEARSAL_BUDGET_S, phase,
+          f"the rehearsal took {wall:.1f} s, over its budget of {REHEARSAL_BUDGET_S} s")
+    totals = {k: sum(n[k] for n in per_stage.values()) for k in ("K1", "K2", "K3")}
+    check(launches == {**totals, "K4": 0, "K5": 0}, phase,
+          f"launches {launches} against the stages' {totals}")
+    for stage, counts in per_stage.items():
+        check((counts["K1"] > 0) == (stage in REHEARSAL_K1), phase,
+              f"{stage}: K1 launches {counts['K1']}")
+        check((counts["K2"] > 0) == (counts["K3"] > 0) == (stage in REHEARSAL_K2_K3)
+              and 2 * counts["K2"] == 3 * counts["K3"], phase,
+              f"{stage}: K2/K3 launches {counts['K2']}/{counts['K3']}")
+    steps = summary["steps_per_stage"]
+    check(per_stage["train-gmmn"]["K2"] == 3 * steps, phase,
+          f"train-gmmn: K2 {per_stage['train-gmmn']['K2']} for {steps} steps")
+    check(summary["artifact_platforms"] == ["cuda"] and summary["backend"] == "cuda", phase,
+          f"ran on {summary['backend']}, exported for {summary['artifact_platforms']}")
+    kernels = rehearsal_kernels(REHEARSAL_DIR)
+    emit(phase=phase, check="K1, K2 and K3 on the synthetic stage's inputs against their "
+         "plain versions, and K2/K3's times there", **kernels, ok=True)
+    emit(phase=phase, wall_seconds=wall, budget_seconds=REHEARSAL_BUDGET_S,
+         total_seconds=summary["total_seconds"], tf32=summary["tf32"],
+         device_name=summary["device_name"], launches=launches, ok=True)
+    shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stages": per_stage, "kernels": kernels}
+
+
 def phase_export_and_data_parallel_alone():
     """phase_export and phase_data_parallel on checkpoints of their own:
     `train-seen` and then `train-gmmn` at full width, one step each."""
@@ -5203,6 +5360,8 @@ def main() -> int:
     lap("int8")
     bb_launches = phase_backbones()
     lap("backbones")
+    rehearsal = phase_rehearsal()
+    lap("rehearsal")
     phase_reference()
     phase_zs3_reference()
     phase_graph_reference()
@@ -5214,6 +5373,9 @@ def main() -> int:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     b4 = timings[(4, 21, "float32")]
     data_launches = lambda k: {path: n[k] for path, n in data["launches"].items()}
+
+    def rehearsal_counts(k):  # {stage: launches}, the rehearsal's stages that launched k
+        return {stage: n[k] for stage, n in rehearsal["stages"].items() if n[k]}
 
     def bb_counts(k):  # {backbone: {path: launches}}, the paths that launched k
         return {b: {path: n[k] for path, n in paths.items() if n[k]}
@@ -5236,6 +5398,7 @@ def main() -> int:
             "launches_data": data_launches(key),
             "launches_backbones": bb_counts(key),
             "launches_data_parallel_per_rank": {"train-gmmn": dp_launches["gmmn"][key]},
+            "launches_rehearsal": rehearsal_counts(key),
             "max_abs_err": err,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
@@ -5248,6 +5411,9 @@ def main() -> int:
             "budgets": {b: mmd_timings[b][key] for b in MMD_BUDGETS},
             "c59": {**data["c59"][key], "shape": data["c59"]["shape"], "max_abs_err": {
                 path: e[c59_err] for path, e in data["errors"].items()}},
+            "rehearsal_synthetic": {**rehearsal["kernels"][key],
+                                    "shape": rehearsal["kernels"]["shape"],
+                                    "max_abs_err": rehearsal["kernels"][c59_err]},
         }
 
     print(json.dumps({"kernels": [{
@@ -5263,6 +5429,8 @@ def main() -> int:
         "launches_data": data_launches("K1"),
         "launches_backbones": bb_counts("K1"),
         "launches_data_parallel_per_rank": {"evaluate": dp_launches["evaluate"]["K1"]},
+        "launches_rehearsal": rehearsal_counts("K1"),
+        "rehearsal_synthetic": rehearsal["kernels"]["K1"],
         "max_abs_err": b4["max_abs_err"],
         "ms": b4["kernel_ms"],
         "plain_ms": b4["plain_ms"],

@@ -168,9 +168,9 @@ def server():
 
 
 def _conn(srv):
-    # No clock: a request waits for its response (or the connection's
-    # end), however long a loaded host takes to run the forward.
-    return http.client.HTTPConnection("127.0.0.1", srv.port, timeout=None)
+    # A generous clock: a loaded host's forward takes seconds, and a hang
+    # fails this test instead of running the suite into its own limit.
+    return http.client.HTTPConnection("127.0.0.1", srv.port, timeout=600)
 
 
 def _png(img):

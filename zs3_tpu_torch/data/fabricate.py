@@ -4,10 +4,12 @@ files that `prepare-context` and `build-embeddings` read).
 
 Real VOC2012, SBD and Pascal-Context trees cannot be downloaded here, so
 these write structurally exact stand-ins: 21-class VOC(+SBD) trees,
-59-class Context trees, a word2vec-style registry `.npy`.  For the same
-arguments and seed, `fabricate_voc_tree`, `fabricate_sbd_tree`,
-`fabricate_context_tree` and `fabricate_embedding_npy` write the files
-zs3_tpu's write, byte for byte (a `.mat` file's header carries its
+59-class Context trees, a word2vec-style registry `.npy`, and a
+torchvision-named ResNet `.pth` with random weights (what the model zoo's
+would look like to `convert-weights`).  For the same arguments and seed,
+`fabricate_voc_tree`, `fabricate_sbd_tree`, `fabricate_context_tree`,
+`fabricate_embedding_npy` and `fabricate_torchvision_resnet_state` give
+what zs3_tpu's give, byte for byte (a `.mat` file's header carries its
 creation time).
 
 Labels are structured (per-class tinted rectangles over noise, a 2-pixel
@@ -176,6 +178,65 @@ def fabricate_context_tree(
         with open(os.path.join(sets, split + ".txt"), "w") as f:
             f.write("\n".join(names) + "\n")
     return {"train": n_train, "val": n_val, "train_with_unseen": with_unseen}
+
+
+_RESNET_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+
+def fabricate_torchvision_resnet_state(
+    depth: int = 101, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """A torchvision-named ResNet state_dict (numpy values) with exactly
+    the real checkpoint's keys and shapes, random weights: conv1, bn1
+    (num_batches_tracked included), layerL.B.{conv,bn}{1,2,3}, block 0's
+    downsample.{0,1}, and the fc head (which the converter must skip)."""
+    if depth not in _RESNET_BLOCKS:
+        raise ValueError(f"depth must be one of {sorted(_RESNET_BLOCKS)}")
+    rng = np.random.default_rng(seed)
+
+    def conv(out_ch, in_ch, k):
+        fan_in = in_ch * k * k
+        return (rng.standard_normal((out_ch, in_ch, k, k)) *
+                (2.0 / fan_in) ** 0.5).astype(np.float32)
+
+    def bn(prefix, ch, sd):
+        sd[prefix + ".weight"] = (1.0 + 0.05 * rng.standard_normal(ch)).astype(np.float32)
+        sd[prefix + ".bias"] = (0.05 * rng.standard_normal(ch)).astype(np.float32)
+        sd[prefix + ".running_mean"] = (0.05 * rng.standard_normal(ch)).astype(np.float32)
+        sd[prefix + ".running_var"] = (1.0 + 0.05 * rng.random(ch)).astype(np.float32)
+        sd[prefix + ".num_batches_tracked"] = np.asarray(100, np.int64)
+
+    sd: Dict[str, np.ndarray] = {}
+    sd["conv1.weight"] = conv(64, 3, 7)
+    bn("bn1", 64, sd)
+    inplanes = 64
+    for li, blocks in enumerate(_RESNET_BLOCKS[depth], start=1):
+        planes = 64 * 2 ** (li - 1)
+        for b in range(blocks):
+            p = f"layer{li}.{b}"
+            sd[p + ".conv1.weight"] = conv(planes, inplanes, 1)
+            bn(p + ".bn1", planes, sd)
+            sd[p + ".conv2.weight"] = conv(planes, planes, 3)
+            bn(p + ".bn2", planes, sd)
+            sd[p + ".conv3.weight"] = conv(planes * 4, planes, 1)
+            bn(p + ".bn3", planes * 4, sd)
+            if b == 0:
+                sd[p + ".downsample.0.weight"] = conv(planes * 4, inplanes, 1)
+                bn(p + ".downsample.1", planes * 4, sd)
+            inplanes = planes * 4
+    sd["fc.weight"] = (0.01 * rng.standard_normal((1000, 2048))).astype(np.float32)
+    sd["fc.bias"] = np.zeros((1000,), np.float32)
+    return sd
+
+
+def fabricate_torchvision_resnet_pth(path: str, depth: int = 101, seed: int = 0) -> str:
+    """torch.save a fabricated torchvision-shaped ResNet .pth."""
+    import torch
+
+    sd = {k: torch.from_numpy(np.asarray(v))
+          for k, v in fabricate_torchvision_resnet_state(depth, seed).items()}
+    torch.save(sd, path)
+    return path
 
 
 def fabricate_embedding_npy(

@@ -3,10 +3,11 @@
 The reference's compositions on {'image', 'label'} sample dicts of numpy
 arrays, with PIL doing the resampling exactly as zs3_tpu does: train is
 HFlip -> RandomScaleCrop -> GaussianBlur -> Normalize, val is
-FixScaleCrop -> Normalize (ImageNet mean/std).  Random transforms take an
-explicit np.random.Generator, so a sample's augmentation is a function of
-its seed, as in zs3_tpu.  The inference geometry (`letterbox_image`,
-`unletterbox_pred`) is copied too.
+FixScaleCrop -> Normalize (ImageNet mean/std); RandomRotate and
+FixedResize are here too, in no composition, as in zs3_tpu.  Random
+transforms take an explicit np.random.Generator, so a sample's
+augmentation is a function of its seed, as in zs3_tpu.  The inference
+geometry (`letterbox_image`, `unletterbox_pred`) is copied too.
 
 Device-side preprocessing (`data.device_preprocess`) splits the train
 composition: `train_transform_spatial` does the shape-changing half on
@@ -52,6 +53,19 @@ def random_horizontal_flip(sample: Sample, rng: np.random.Generator) -> Sample:
             "label": np.ascontiguousarray(sample["label"][:, ::-1]),
         }
     return sample
+
+
+def random_rotate(
+    sample: Sample, rng: np.random.Generator, degree: float = 15.0, fill: int = 255
+) -> Sample:
+    """Rotate by an angle uniform in [-degree, degree]: the image
+    bilinearly, the label by nearest neighbour with `fill` where it
+    uncovers (the reference's RandomRotate)."""
+    angle = rng.uniform(-degree, degree)
+    img, lbl = _to_pil(sample["image"], sample["label"])
+    img = img.rotate(angle, Image.BILINEAR)
+    lbl = lbl.rotate(angle, Image.NEAREST, fillcolor=fill)
+    return _from_pil(img, lbl)
 
 
 def random_gaussian_blur(sample: Sample, rng: np.random.Generator) -> Sample:
@@ -114,6 +128,15 @@ def fix_scale_crop(sample: Sample, crop_size: int = 513) -> Sample:
     y1 = int(round((h - crop_size) / 2.0))
     img = img.crop((x1, y1, x1 + crop_size, y1 + crop_size))
     lbl = lbl.crop((x1, y1, x1 + crop_size, y1 + crop_size))
+    return _from_pil(img, lbl)
+
+
+def fixed_resize(sample: Sample, size: int = 513) -> Sample:
+    """Resize to (size, size), ignoring the aspect: the image bilinearly,
+    the label by nearest neighbour (the reference's FixedResize)."""
+    img, lbl = _to_pil(sample["image"], sample["label"])
+    img = img.resize((size, size), Image.BILINEAR)
+    lbl = lbl.resize((size, size), Image.NEAREST)
     return _from_pil(img, lbl)
 
 

@@ -1,8 +1,9 @@
 """Label -> color visualization (a copy of zs3_tpu.utils.viz's palettes).
 
 The VOC color palette of the reference (zs3/dataloaders/utils.py
-get_pascal_labels), a seeded palette past 21 classes, and
-`decode_segmap` for the colorized PNGs of `infer` and `serve`.
+get_pascal_labels), a seeded palette past 21 classes, `decode_segmap`
+for the colorized PNGs of `infer` and `serve`, its batched form
+`decode_seg_map_sequence`, and `encode_segmap` back from VOC colors.
 """
 
 from __future__ import annotations
@@ -40,3 +41,19 @@ def decode_segmap(label: np.ndarray, num_classes: int = 21) -> np.ndarray:
     rgb = palette[safe]
     rgb[(label < 0) | (label >= num_classes)] = 0
     return rgb
+
+
+def decode_seg_map_sequence(labels: np.ndarray, num_classes: int = 21) -> np.ndarray:
+    """(N, H, W) -> (N, H, W, 3)."""
+    return np.stack([decode_segmap(l, num_classes) for l in labels])
+
+
+def encode_segmap(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) VOC-palette RGB -> (H, W) int labels (255 if unmatched)."""
+    palette = get_pascal_labels()
+    h, w, _ = rgb.shape
+    out = np.full((h, w), 255, np.uint8)
+    flat = rgb.reshape(-1, 3)
+    for i, color in enumerate(palette):
+        out.reshape(-1)[np.all(flat == color, axis=1)] = i
+    return out
