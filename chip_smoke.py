@@ -56,6 +56,15 @@ just after:
     restricted logits) and K2/K3 at the Context step's shape against
     their plain versions; the loader's images/s, one batch's copy to the
     card, and the seen step fed by the loader beside bypassing it.
+  * input_pipeline="tfdata" (data/tfdata.py, zs3_tpu's tf.data stream
+    without TensorFlow, 4 worker processes) on those trees:
+    `train-seen` on VOC2012 at split 2 with --compilation-cache in a
+    fresh directory (K1 built there), `train-zs5` on Context from the
+    59-class trunk (its pseudo-labels read through the stream), then
+    `evaluate` with the same directory (no nvcc: K1's library keeps its
+    mtime); batches byte-equal at 0 and 4 workers, epochs repeatable; the
+    stream's images/s at 4 and 8 workers beside the python loader's, and
+    the seen step fed by each.
   * int8 (zs3_tpu_torch/quant.py): `evaluate --int8` (calibration on 2
     val batches, 112 int8 convs a forward, K1 once per eval batch); the
     s8 x s8 -> s32 route (im2col + torch._int_mm) held bit-equal to its
@@ -121,6 +130,7 @@ imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import http.client
@@ -232,11 +242,11 @@ def time_ms(fn, reps: int = 20, rounds: int = 5, what: str = "") -> float:
     torch.cuda.synchronize()
     cycles = max(SLEEP_CYCLES, int(SLEEP_CYCLES * 4 * reps * one_ms / 50))
     times = []
+    gc.collect()  # once: a full collection takes ~0.1 s with the port's modules loaded
     for _ in range(rounds):
         sleep_start = torch.cuda.Event(enable_timing=True)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        gc.collect()
         gc.disable()  # a collection while queueing would outlast the sleep
         try:
             sleep_start.record()
@@ -464,7 +474,7 @@ def phase_kernels():
         ((1, 9, 11, 7), (33, 45), bf16, False),
         ((2, 17, 17, 21), (65, 65), f32, False),
         ((2, 33, 33, 21), (9, 9), f32, False),        # downsample: runs of one
-        ((8, 13, 13, 10), (49, 49), f32, False),      # the rehearsal's synthetic eval
+        ((8, 13, 13, 10), (49, 49), f32, True),       # the rehearsal's synthetic eval
         ((1, 33, 129, 128), (65, 513), f32, False),   # 138 KB of shared memory
         ((1, 33, 129, 128), (65, 513), bf16, False),
     ]
@@ -511,7 +521,7 @@ def phase_kernels():
               f"restricted {shape}: a class not allowed won")
         row = dict(phase="kernels", kernel="upsample_argmax", case="finfo.min restricted",
                    shape=list(shape), size=list(size), near_ties=ties, max_abs_err=err, ok=True)
-        if shape[-1] == 59:
+        if shape[-1] in (59, 10):  # the Context pass's and the synthetic stage's
             what, nchw = f"restricted {shape}", logits.permute(0, 3, 1, 2)
             row["bound_ms"], row["bound_by"] = k1_bound(*shape, *size)
             row.update(
@@ -519,7 +529,7 @@ def phase_kernels():
                 plain_ms=time_ms(lambda: upsample_argmax_reference(logits, size), what=what),
                 library_ms=time_ms(lambda: F.interpolate(
                     nchw, size=size, mode="bilinear", align_corners=True).argmax(1), what=what))
-            timings[("restricted", 59)] = row
+            timings[("restricted", shape[-1])] = row
         emit(**row)
     for dtype in (f32, bf16):
         flat = torch.zeros((1, 8, 8, 4), device="cuda", dtype=dtype)
@@ -3078,29 +3088,23 @@ def loader_numbers(phase, cfg):
     return rates, h2d
 
 
-def seen_fed_and_bypassed(phase, trainer):
+def seen_fed_and_bypassed(phase, trainer, modes, fed_steps=DATA_FED_STEPS, bypass=None):
     """The seen step (train batch 8, 513²) on the trainer `train-seen`
-    ran, with device_preprocess off and on: steps/s fed by the loader
-    (pinned batches copied as they come; in each of 3 rounds, for each
-    mode in turn, a fresh epoch, 2 steps to fill the queue, then
-    DATA_FED_STEPS steps timed on the host clock to a synchronize; the
-    median round) beside steps/s on batches already on the card (3
+    ran, fed by each of `modes` ({name: (loader, step)}): steps/s fed by
+    the loader (pinned batches copied as they come; in each of 3 rounds,
+    for each mode in turn, a fresh epoch, 2 steps to fill the queue, then
+    `fed_steps` steps timed on the host clock to a synchronize; the
+    median round) beside steps/s on its batches already on the card (3
     windows of 10), the device ms per step (profiler, 3 steps) and each
-    rate's idle share."""
-    from zs3_tpu_torch.data.loader import make_train_loader
-    from zs3_tpu_torch.train.seen import device_batch, make_train_step
+    rate's idle share.  Modes that share one step can share `bypass`, the
+    mode whose batches the card-side numbers are taken on."""
+    from zs3_tpu_torch.train.seen import device_batch
     from zs3_tpu_torch.utils.profiling import profile_device
 
-    cfg, cuda = trainer.cfg, torch.device("cuda")
-    modes = {}
-    for preprocess in (False, True):
-        data = dataclasses.replace(cfg.data, device_preprocess=preprocess)
-        modes[preprocess] = (make_train_loader(data, pin_memory=True)[0], make_train_step(
-            trainer.loss_fn, cfg.optim.loss_at, cfg.train.grad_accum, cfg.train.seed,
-            preprocess))
-    fed = {False: [], True: []}
+    cuda = torch.device("cuda")
+    fed = {name: [] for name in modes}
     for round_ in range(3):
-        for preprocess, (loader, step) in modes.items():
+        for name, (loader, step) in modes.items():
             loader.set_epoch(round_)
             feed = iter(loader)
             fed_step = lambda: step(trainer.model, trainer.optimizer,
@@ -3109,33 +3113,37 @@ def seen_fed_and_bypassed(phase, trainer):
                 fed_step()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(DATA_FED_STEPS):
+            for _ in range(fed_steps):
                 fed_step()
             torch.cuda.synchronize()
-            fed[preprocess].append(DATA_FED_STEPS / (time.perf_counter() - t0))
+            fed[name].append(fed_steps / (time.perf_counter() - t0))
             feed.close()
-    out = {}
-    for preprocess, (loader, step) in modes.items():
+    out, card_side = {}, {}
+    for name, (loader, step) in modes.items():
+        if bypass is not None and name != bypass:
+            continue
         on_card = [device_batch(b, cuda) for _, b in zip(range(4), loader)]
         turn = itertools.cycle(on_card)
         bypass_step = lambda: step(trainer.model, trainer.optimizer, next(turn))
         bypassed, windows = rate_windows(bypass_step, calls=10, windows=3)
         prof = profile_device(bypass_step, steps=3)
-        device_ms = prof["device_busy_ms"] / 3
-        rate = sorted(fed[preprocess])[1]
-        key = "device_preprocess" if preprocess else "host_normalized"
-        out[key] = {
-            "fed_steps_per_sec": rate, "fed_rounds": fed[preprocess],
+        card_side[name] = (bypassed, windows, prof["device_busy_ms"] / 3,
+                           str(on_card[0]["image"].dtype).split(".")[-1])
+    for name in modes:
+        bypassed, windows, device_ms, dtype = card_side[bypass or name]
+        rate = sorted(fed[name])[1]
+        out[name] = {
+            "fed_steps_per_sec": rate, "fed_rounds": fed[name],
             "bypassed_steps_per_sec": bypassed, "bypassed_windows": windows,
             "device_ms_per_step": device_ms,
             "fed_idle_share": 1.0 - device_ms * rate / 1e3,
             "bypassed_idle_share": 1.0 - device_ms * bypassed / 1e3,
-            "image_dtype": str(on_card[0]["image"].dtype).split(".")[-1],
+            "image_dtype": dtype,
         }
         check(is_finite(rate) and is_finite(bypassed) and device_ms > 0, phase,
-              f"seen step rates {out[key]}")
+              f"seen step rates {out[name]}")
     emit(phase=phase, step="seen step fed by the loader against bypassing it", batch=8,
-         fed_steps=DATA_FED_STEPS, num_workers=cfg.data.num_workers, **out)
+         fed_steps=fed_steps, num_workers=trainer.cfg.data.num_workers, **out)
     return out
 
 
@@ -3150,10 +3158,13 @@ def phase_data():
     registry.  Each path with the counts from 0 and the launches it must
     make; K2/K3 against their plain versions at the Context steps' inputs
     (C = 59, after the VOC step's C = 21 in this process), and timed
-    there; the loader's numbers and the seen step fed by it."""
+    there; the loader's numbers and the seen step fed by it.  The trees
+    stay for phase_tfdata, with the Context trunk's checkpoint (returned)."""
     from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data.loader import make_train_loader
     from zs3_tpu_torch.ops import mmd_kernels as mk
     from zs3_tpu_torch.ops.mmd import DEFAULT_SIGMAS as sig
+    from zs3_tpu_torch.train.seen import make_train_step
     from zs3_tpu_torch.train.self_training import _gt_view
     from zs3_tpu_torch.utils.saver import Saver
 
@@ -3195,7 +3206,15 @@ def phase_data():
           and len(seen.val_loader.dataset) == 16, phase, "train-seen pascal: not the asked run")
     seen_ckpt = Saver.latest_checkpoint(seen.saver.directory)
     loader_rates, h2d = loader_numbers(phase, seen.cfg)
-    fed = seen_fed_and_bypassed(phase, seen)
+    modes = {}
+    for preprocess in (False, True):
+        data = dataclasses.replace(seen.cfg.data, device_preprocess=preprocess)
+        modes["device_preprocess" if preprocess else "host_normalized"] = (
+            make_train_loader(data, pin_memory=True)[0],
+            make_train_step(seen.loss_fn, seen.cfg.optim.loss_at, seen.cfg.train.grad_accum,
+                            seen.cfg.train.seed, preprocess))
+    fed = seen_fed_and_bypassed(phase, seen, modes)
+    del modes
     del seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -3268,10 +3287,188 @@ def phase_data():
     del graph, inputs, x, y, wx, wy
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(DATA_ROOT, ignore_errors=True)
     emit(phase=phase, seconds=time.time() - t_phase, ok=True)
     return {"launches": launches, "errors": errors, "c59": c59, "loader": loader_rates,
-            "host_to_device": h2d, "seen_fed": fed}
+            "host_to_device": h2d, "seen_fed": fed, "context_checkpoint": ctx_ckpt}
+
+
+TFDATA_WORKERS = 4  # the stream's worker processes on the paths (--config)
+TFDATA_EPOCHS = 2  # epochs timed per loader
+
+
+def first_batches(loader, epoch, n=2):
+    """The first n batches of `epoch`, as numpy arrays."""
+    import numpy as np
+
+    loader.set_epoch(epoch)
+    feed = iter(loader)
+    batches = [{k: np.asarray(v) for k, v in next(feed).items()} for _ in range(n)]
+    feed.close()
+    return batches
+
+
+def same_bytes(a, b):
+    return all(x[k].tobytes() == y[k].tobytes() for x, y in zip(a, b, strict=True) for k in x)
+
+
+def epoch_rates(loader):
+    """images/s of `loader` (pinned batches) in each of TFDATA_EPOCHS
+    epochs, timed from the first request to the last batch; the rate is
+    the last epoch's (a new stream's first epoch starts its workers and
+    first touches its ring)."""
+    rates = []
+    for epoch in range(TFDATA_EPOCHS):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader:
+            n += batch["image"].shape[0]
+        rates.append(n / (time.perf_counter() - t0))
+    return {"images_per_sec": rates[-1], "epochs_images_per_sec": rates,
+            "images_per_epoch": n, "pinned": bool(batch["image"].is_pinned())}
+
+
+def phase_tfdata(ctx_ckpt):
+    """input_pipeline="tfdata" (data/tfdata.py: zs3_tpu's tf.data stream
+    without TensorFlow) at full width (R101, os16, 513², bf16, batch 8)
+    on the data phase's trees, through a --config that sets it with
+    TFDATA_WORKERS workers: `train-seen` on VOC2012 (split 2, no SBD, 2
+    steps and its validation: K1 4 times) with --compilation-cache in a
+    fresh directory, which must then hold K1's library; `train-zs5` on
+    Context from the data phase's 59-class trunk (`ctx_ckpt`; K1 once a
+    tagged image and a val batch, K2 3 and K3 2 a step), its batches read
+    through the stream with the weak labels; `evaluate` with the same
+    directory after that, which runs no nvcc (K1's library keeps its
+    mtime).  On the host: the first two batches at 0 and 4 workers
+    byte-equal, epoch 1 repeatable and not epoch 0; the stream's images/s
+    at 4 and 8 workers beside the python loader's; the seen step fed by
+    each against batches on the card.  Removes the trees."""
+    from pathlib import Path
+
+    from zs3_tpu_torch.data.loader import make_train_loader
+    from zs3_tpu_torch.data.tfdata import TFDataLoader, _file_lists
+    from zs3_tpu_torch.ops import cuda_build, eval_kernels
+    from zs3_tpu_torch.train.seen import make_train_step
+    from zs3_tpu_torch.train.self_training import _gt_view
+    from zs3_tpu_torch.utils.saver import Saver
+
+    phase = "tfdata"
+    t_phase = time.time()
+    config = os.path.join(DATA_ROOT, "tfdata.json")
+    with open(config, "w") as f:
+        json.dump({"data": {"input_pipeline": "tfdata", "num_workers": TFDATA_WORKERS}}, f)
+    cache = os.path.join(DATA_ROOT, "compilation_cache")
+    check(not os.path.exists(cache), phase, f"{cache} is not fresh")
+    k1_library = cuda_build.library_path("upsample_argmax", Path(cache).resolve())
+    steps = ["--epochs", "1", "--steps-per-epoch", str(DATA_STEPS)]
+    stream = ["--config", config]
+    paths = {}
+
+    def run(name, argv, want):
+        result, obj, launches, _, wall = run_path(phase, argv, want)
+        check(all(is_finite(v) for k, v in result.items() if k != "epoch"), phase,
+              f"{name}: non-finite results {result}")
+        check(isinstance(obj.train_loader, TFDataLoader), phase,
+              f"{name}: train batches from {type(obj.train_loader).__name__}")
+        paths[name] = {"command": "python -m zs3_tpu_torch.cli " + " ".join(argv),
+                       "result": result, "launches": launches,
+                       "wall_seconds_with_setup": wall}
+        emit(phase=phase, path=name, **paths[name])
+        return obj
+
+    evals = lambda t: {"K1": len(t.val_loader)}
+    seen = run("train-seen pascal", data_args(
+        "train-seen", "pascal", 2, *steps, *stream, "--compilation-cache", cache), evals)
+    check(seen.step == DATA_STEPS and len(seen.val_loader.dataset) == 16
+          and seen.cfg.data.num_workers == TFDATA_WORKERS and k1_library.exists(), phase,
+          f"train-seen pascal: not the asked run, or no K1 library in {cache}")
+    k1_mtime = k1_library.stat().st_mtime_ns
+    seen_ckpt = Saver.latest_checkpoint(seen.saver.directory)
+
+    # The stream on the host: workers, epochs, rates beside the python loader's.
+    stream_loader = seen.train_loader
+    inline = TFDataLoader(stream_loader.dataset, dataclasses.replace(seen.cfg.data,
+                                                                     num_workers=0))
+    check(same_bytes(first_batches(inline, 0), first_batches(stream_loader, 0)), phase,
+          f"the first two batches differ between 0 and {TFDATA_WORKERS} workers")
+    again = first_batches(stream_loader, 1)
+    check(same_bytes(again, first_batches(stream_loader, 1))
+          and not same_bytes(again, first_batches(stream_loader, 0)), phase,
+          "epoch 1 does not repeat, or equals epoch 0")
+    emit(phase=phase, check="first two batches at 0 and 4 workers, epochs 0 and 1",
+         equal_bytes=True, epoch_1_repeats=True, epoch_0_differs=True)
+    # Rates and the fed step over longer epochs: the 45 names three times,
+    # 16 batches (the stream keeps 2 x workers batches in flight).
+    repeated = copy.copy(stream_loader.dataset)
+    repeated.names = repeated.names * 3
+    stream_loader.dataset = repeated
+    python_data = dataclasses.replace(seen.cfg.data, input_pipeline="python")
+    loaders = {"tfdata_4_workers": stream_loader}
+    for name, workers, data in (("python_4_workers", 4, python_data),
+                                ("tfdata_8_workers", 8, seen.cfg.data),
+                                ("python_8_workers", 8, python_data)):
+        loaders[name] = make_train_loader(dataclasses.replace(data, num_workers=workers),
+                                          pin_memory=True)[0]
+        loaders[name].dataset = repeated
+    rates = {name: epoch_rates(loader) for name, loader in loaders.items()}
+    loaders["tfdata_8_workers"].close()
+    emit(phase=phase, step="loader", batch=8, crop=513, cpu_count=os.cpu_count(),
+         images_per_epoch=len(repeated), loader=rates)
+    step = make_train_step(seen.loss_fn, seen.cfg.optim.loss_at, seen.cfg.train.grad_accum,
+                           seen.cfg.train.seed)
+    python_loader = loaders["python_4_workers"]
+    fed = seen_fed_and_bypassed(phase, seen, {"tfdata": (stream_loader, step),
+                                              "python": (python_loader, step)},
+                                fed_steps=len(stream_loader) - 2, bypass="tfdata")
+    stream_loader.close()
+    del seen, stream_loader, inline, python_loader, step, loaders
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emb = ["--embedding-path", os.path.join(DATA_ROOT, "context_w2v.npy")]
+
+    tagged = {}
+
+    def zs5_want(t):  # K1 once per tagged train image too, K2 3 and K3 2 a step
+        ds = _gt_view(t.train_loader.dataset)
+        tagged["names"] = [ds.names[i] for i in tagged_images(ds, list(t.unseen))]
+        return {"K1": len(tagged["names"]) + len(t.val_loader), "K2": 3 * DATA_STEPS,
+                "K3": 2 * DATA_STEPS}
+
+    zs5 = run("train-zs5 context", data_args(
+        "train-zs5", "context", 4, *steps, *emb, *stream, "--resume", ctx_ckpt), zs5_want)
+    ds = zs5.train_loader.dataset
+    labels = dict(zip(ds.names, _file_lists(ds)[1]))
+    weak = [labels[n] for n in tagged["names"]
+            if os.path.dirname(labels[n]) == zs5.pseudo_dir]
+    check(zs5.num_classes == 59 and len(weak) == len(tagged["names"]) > 0, phase,
+          f"train-zs5 context: {len(weak)} of {len(tagged['names'])} tagged images read "
+          "their pseudo-labels through the stream")
+    emit(phase=phase, check="train-zs5 reads its pseudo-labels through the stream",
+         weak_labels=len(weak))
+    zs5.train_loader.close()
+    del zs5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    result, trainer, launches, _, wall = run_path(phase, data_args(
+        "evaluate", "pascal", 2, "--resume", seen_ckpt, "--compilation-cache", cache), evals)
+    check(k1_library.stat().st_mtime_ns == k1_mtime
+          and eval_kernels._LIB._dir == Path(cache).resolve(), phase,
+          "evaluate with the same --compilation-cache rebuilt K1, or loaded it elsewhere")
+    emit(phase=phase, path="evaluate pascal, same --compilation-cache", result=result,
+         launches=launches, wall_seconds_with_setup=wall, k1_library=str(k1_library),
+         k1_mtime_unchanged=True)
+    del trainer
+    cuda_build.set_build_dir(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(DATA_ROOT, ignore_errors=True)
+    seconds = time.time() - t_phase
+    check(seconds <= 90, phase, f"the phase took {seconds:.1f} s, over its 90")
+    emit(phase=phase, seconds=seconds, ok=True)
+    return {"launches": {n: p["launches"] for n, p in paths.items()}, "loader": rates,
+            "seen_fed": fed}
 
 
 def to_f64(trainer):
@@ -5356,6 +5553,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("data")
+    tfdata = phase_tfdata(data["context_checkpoint"])
+    lap("tfdata")
     phase_int8()
     lap("int8")
     bb_launches = phase_backbones()
@@ -5373,6 +5572,7 @@ def main() -> int:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     b4 = timings[(4, 21, "float32")]
     data_launches = lambda k: {path: n[k] for path, n in data["launches"].items()}
+    tfdata_launches = lambda k: {path: n[k] for path, n in tfdata["launches"].items()}
 
     def rehearsal_counts(k):  # {stage: launches}, the rehearsal's stages that launched k
         return {stage: n[k] for stage, n in rehearsal["stages"].items() if n[k]}
@@ -5396,6 +5596,7 @@ def main() -> int:
             "launches_train_zs5": zs5_launches[key],
             "launches_graph": graph_launches[key],
             "launches_data": data_launches(key),
+            "launches_tfdata": tfdata_launches(key),
             "launches_backbones": bb_counts(key),
             "launches_data_parallel_per_rank": {"train-gmmn": dp_launches["gmmn"][key]},
             "launches_rehearsal": rehearsal_counts(key),
@@ -5427,6 +5628,7 @@ def main() -> int:
         "launches_graph": graph_launches["K1"],
         "zs5_pseudo_label": zs5_k1,
         "launches_data": data_launches("K1"),
+        "launches_tfdata": tfdata_launches("K1"),
         "launches_backbones": bb_counts("K1"),
         "launches_data_parallel_per_rank": {"evaluate": dp_launches["evaluate"]["K1"]},
         "launches_rehearsal": rehearsal_counts("K1"),
@@ -5447,6 +5649,10 @@ def main() -> int:
                 for d in ("float32", "bfloat16")},
         "c59_restricted_b1": {f: timings[("restricted", 59)][f] for f in (
             "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "rehearsal_synthetic_shapes": {  # (8,13,13,10)->49², (1,13,13,10) restricted
+            "b8": {f: timings[(8, 10, "float32")][f] for f in k1_fields + ("max_abs_err",)},
+            "restricted_b1": {f: timings[("restricted", 10)][f] for f in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}},
     },
         mmd_row("mmd_kernel_sum", "K2", 54, main_err["k2_max_abs_err"], "k2_max_abs_err"),
         mmd_row("mmd_kernel_sum_grad", "K3", 79, main_err["k3_dx_max_abs_err"],

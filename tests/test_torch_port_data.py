@@ -15,8 +15,8 @@ Pascal-Context trees (small images, 50-80 pixels a side).
   exact on zs3_tpu's mask, and the seen and ZS3 steps on a uint8 batch
   equal to the steps on the host-normalized batch flipped by the same
   mask;
-* the dataset-named class embeddings, the `tfdata` refusal, and ZS5's
-  weak labels on the readers' own hook.
+* the dataset-named class embeddings, `tfdata`'s refusal of
+  device_preprocess, and ZS5's weak labels on the readers' own hook.
 """
 
 import copy
@@ -357,9 +357,16 @@ def test_class_embeddings_by_dataset_name(tmp_path, dataset, from_file):
 
 
 def test_tfdata_is_refused(trees):
-    cfg = DataConfig(**_loader_cfg(trees[0], 0, False), input_pipeline="tfdata")
-    with pytest.raises(NotImplementedError, match="tfdata"):
-        make_data_loader(cfg)
+    """input_pipeline="tfdata" is ported (tests/test_torch_port_tfdata.py);
+    what stays refused, as in zs3_tpu, is its combination with
+    device_preprocess: the step would normalize the host-normalized batch
+    again."""
+    for use_sbd in (True, False):
+        kw = {**_loader_cfg(trees[0], 0, True), "use_sbd": use_sbd}
+        with pytest.raises(ValueError, match="device_preprocess"):
+            make_data_loader(DataConfig(**kw, input_pipeline="tfdata"))
+        with pytest.raises(ValueError, match="device_preprocess"):
+            jax_make_data_loader(JaxDataConfig(**kw, input_pipeline="tfdata"))
 
 
 def test_zs5_reads_weak_labels_through_the_readers(trees):

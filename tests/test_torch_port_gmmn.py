@@ -359,20 +359,45 @@ def check_backbone_trainer(backbone):
     assert feats.shape == (batch["image"].shape[0] * 9 * 9, 256) == (labels.shape[0], 256)
 
 
+def check_tfdata_trainer(root):
+    """GMMNTrainer at 33x33 with input_pipeline="tfdata" on a fabricated
+    VOC tree: its train batches come from the port's TFDataLoader, and
+    the step's features are taken from one."""
+    from zs3_tpu_torch.data import fabricate
+    from zs3_tpu_torch.data.tfdata import TFDataLoader
+    from zs3_tpu_torch.train.seen import device_batch
+
+    fabricate.fabricate_voc_tree(root, 8, 2, sizes=((40, 50), (50, 40)))
+    argv = ["train-gmmn", *TINY, "--dataset", "pascal", "--data-root", root]
+    cfg = cli.build_config(cli.make_parser().parse_args(argv))
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, input_pipeline="tfdata"))
+    with pytest.warns(UserWarning):
+        trainer = gmmn.GMMNTrainer(cfg, device="cpu")
+    assert isinstance(trainer.train_loader, TFDataLoader) and trainer.num_classes == 21
+    batch = device_batch(next(iter(trainer.train_loader)), "cpu")
+    assert batch["image"].shape == (4, 33, 33, 3) and batch["label"].dtype == torch.int32
+    feats, labels = trainer.step.features(batch)
+    assert feats.shape == (4 * 9 * 9, 256) == (labels.shape[0], 256)
+
+
 @pytest.mark.parametrize("change", [
-    ("data", "input_pipeline", "tfdata"),  # the pascal and context readers are ported now
+    ("data", "input_pipeline", "tfdata"),  # data/tfdata.py is ported now
     ("train", "int8_features", True),
     ("model", "backbone", "mobilenet"),  # device_preprocess is ported now
     ("train", "int8_eval", True),     # TTA (eval_scales/eval_flip) is ported now
     ("model", "backbone", "drn"),
     ("model", "backbone", "xception"),  # gmmn_resume is ported now
 ])
-def test_trainer_refuses_unported_settings(change):
-    """Each setting whose path is not ported raises.  The int8 settings
-    and the backbones were among them until the port had quantization and
-    the other backbones: their cases now check that the trainer runs them
-    (check_int8_trainer, check_backbone_trainer)."""
+def test_trainer_refuses_unported_settings(change, tmp_path):
+    """Each setting whose path is not ported raises.  The int8 settings,
+    the backbones and the tf.data stream were among them until the port
+    had quantization, the other backbones and data/tfdata.py: their cases
+    now check that the trainer runs them (check_int8_trainer,
+    check_backbone_trainer, check_tfdata_trainer)."""
     node, field, value = change
+    if field == "input_pipeline":
+        check_tfdata_trainer(str(tmp_path))
+        return
     if field in ("int8_features", "int8_eval"):
         check_int8_trainer(field)
         return

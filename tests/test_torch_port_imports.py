@@ -57,7 +57,7 @@ def test_port_imports_no_jax_and_no_zs3_tpu():
                  "data.embedding_build", "data.loader", "data.transforms",
                  "models.xception", "models.mobilenet", "models.drn", "utils.convert",
                  "utils.profiling", "export", "core.mesh", "parallel", "parallel.spatial",
-                 "release_rehearsal"):
+                 "release_rehearsal", "data.tfdata"):
         assert f"zs3_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

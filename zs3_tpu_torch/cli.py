@@ -21,10 +21,14 @@
     python -m zs3_tpu_torch.cli profile --mode fwd --steps 10 --trace-dir trace
     python -m zs3_tpu_torch.cli export --output model.pt2 --resume CKPT --gmmn-resume CKPT
     python -m zs3_tpu_torch.cli serve --artifact model.pt2
+    python -m zs3_tpu_torch.cli train-seen --dataset pascal --config tfdata.json \
+        --compilation-cache /cache/kernels   # tfdata.json: {"data": {"input_pipeline": "tfdata"}}
 
 Flags override a JSON config (--config, zs3_tpu's format) which
 overrides the defaults.  The command prints one JSON line.  It runs on
-the GPU unless --device cpu is given.  Checkpoints go to
+the GPU unless --device cpu is given.  Every subcommand builds and loads
+the CUDA kernels in --compilation-cache DIR (default
+$ZS3_COMPILATION_CACHE, else build/kernels).  Checkpoints go to
 <checkpoint-dir>/<dataset>/<checkname>[-gmmn|-zs5]/experiment_N/.
 train-seen, evaluate, train-gmmn, evaluate-gmmn and train-zs5 run
 data-parallel under torchrun (one rank a card; gloo ranks with --device
@@ -38,14 +42,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import Any, Dict, Optional, Tuple
 
 from zs3_tpu_torch.core.config import Config, context_unseen_split, voc_unseen_split
+from zs3_tpu_torch.ops import cuda_build
 
 
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--config", type=str, default=None, help="JSON config file")
+    p.add_argument("--compilation-cache", type=str, metavar="DIR",
+                   default=os.environ.get("ZS3_COMPILATION_CACHE"),
+                   help="directory the CUDA kernels are built into and loaded from "
+                        "(default: $ZS3_COMPILATION_CACHE, else build/kernels); a restarted "
+                        "job with the same DIR runs no nvcc")
     p.add_argument("--dataset", choices=["pascal", "context", "synthetic"])
     p.add_argument("--data-root", type=str,
                    help="directory holding VOC2012/ (and benchmark_RELEASE/ for SBD) "
@@ -414,6 +425,7 @@ def run(argv=None) -> Tuple[Dict[str, Any], Optional[Any]]:
     then trains.  The DATA_PARALLEL commands join the process group
     torchrun describes, if any (core/mesh.py::init_data_parallel)."""
     args = make_parser().parse_args(argv)
+    cuda_build.set_build_dir(args.compilation_cache)
     cfg = build_config(args)
     if args.command in DATA_PARALLEL:
         from zs3_tpu_torch.core.mesh import init_data_parallel

@@ -20,7 +20,9 @@ so its copies to the card are asynchronous; else numpy arrays.  With
 `shard` (rank, ranks) a loader reads and yields only rank's contiguous
 rows of each global batch (core/mesh.py's sharding).  Images
 are normalized f32 NHWC, or uint8 with `device_preprocess`; labels
-int32.  `input_pipeline="tfdata"` (zs3_tpu's tf.data stream) is refused.
+int32.  With `input_pipeline="tfdata"` the pascal and context train
+loaders are data/tfdata.py's `TFDataLoader` (zs3_tpu's tf.data stream,
+without TensorFlow); synthetic data keeps this loader, as in zs3_tpu.
 """
 
 from __future__ import annotations
@@ -217,14 +219,22 @@ def make_train_loader(cfg: DataConfig, pin_memory: bool = False,
                       shard: Tuple[int, int] = (0, 1)) -> Tuple[DataLoader, int]:
     """(train_loader, num_classes): shuffled, the last ragged batch
     dropped, augmented by train_transform (train_transform_spatial with
-    device_preprocess); rank's rows of each batch with `shard`."""
-    if cfg.input_pipeline == "tfdata":
-        raise NotImplementedError(
-            "data.input_pipeline='tfdata' (zs3_tpu's tf.data stream) is not ported: its "
-            "augmentation draws from TensorFlow's stateless RNG, which the port cannot "
-            "reproduce; use input_pipeline='python' (see ROADMAP Queue 3, stated divergences)"
-        )
+    device_preprocess); rank's rows of each batch with `shard`.  With
+    input_pipeline="tfdata", pascal and context take zs3_tpu's tf.data
+    stream (`TFDataLoader`), which normalizes on the host: it refuses
+    device_preprocess, as zs3_tpu does, and the VOC+SBD union, on which
+    zs3_tpu's fails (SBD names no image files, and its labels are .mat)."""
+    tfdata = cfg.input_pipeline == "tfdata" and cfg.dataset in ("pascal", "context")
+    if tfdata and cfg.device_preprocess:
+        # The step would normalize the host-normalized batch again.
+        raise ValueError("input_pipeline='tfdata' already normalizes on the host; "
+                         "it cannot be combined with device_preprocess=True")
     dataset, num_classes = _datasets(cfg, train=True)
+    if tfdata:
+        from zs3_tpu_torch.data.tfdata import TFDataLoader
+
+        return TFDataLoader(dataset, cfg, seed=cfg.shuffle_seed, pin_memory=pin_memory,
+                            shard=shard), num_classes
     host_tf = T.train_transform_spatial if cfg.device_preprocess else T.train_transform
     loader = DataLoader(
         dataset, cfg.batch_size,
