@@ -62,6 +62,7 @@ from zs3_tpu_torch.parallel import spatial
 from zs3_tpu_torch.train.state import SegOptimizer
 from zs3_tpu_torch.utils.logging import MetricLogger
 from zs3_tpu_torch.utils.losses import build_seg_loss, compute_dataset_class_weights
+from zs3_tpu_torch.utils.profiling import span
 from zs3_tpu_torch.utils.saver import Saver
 
 Batch = Dict[str, torch.Tensor]
@@ -140,7 +141,13 @@ def make_train_step(
     global batch's.  A mesh with a `space` axis of several ranks that are
     not replicas (make_mesh's; parallel/spatial.py's train step) takes
     this rank's rows of H too: each microbatch's forward runs under the
-    spatial sharding of its plan."""
+    spatial sharding of its plan.
+
+    Each call is a span `zs3.train.step` (utils/profiling.py::span) over
+    `zs3.train.prepare` (preprocessing, train mode, the dropout generator,
+    zero_grad), each microbatch's `zs3.train.forward` (forward and loss)
+    and `zs3.train.backward`, and `zs3.train.optimizer`; the gradient
+    all-reduce and the grad_accum divide are the step's own time."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if loss_at not in ("full", "feature"):
@@ -161,29 +168,36 @@ def make_train_step(
     shard = shard_of(mesh)
 
     def train_step(model: DeepLab, optimizer: SegOptimizer, batch: Batch):
-        if device_preprocess:
-            batch = preprocess_on_device(batch, seed, optimizer.step, shard)
-        images, labels = batch["image"], batch["label"]
-        if images.shape[0] % grad_accum:
-            where = f" on each of {shard[1]} ranks" if shard[1] > 1 else ""
-            raise ValueError(f"batch size {images.shape[0]}{where} is not divisible by "
-                             f"grad_accum {grad_accum}")
-        model.train()
-        set_dropout_generator(model, step_generator(seed, optimizer.step, images.device), shard)
-        optimizer.zero_grad()
-        loss_sum = None
-        with quant.qat() if qat else contextlib.nullcontext():
-            for mb_images, mb_labels in zip(images.chunk(grad_accum), labels.chunk(grad_accum)):
-                loss = micro_loss(model, mb_images, mb_labels)
-                loss.backward()
-                loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        if mesh is not None:
-            loss_sum = all_reduce_grads_(model.parameters(), mesh, extra=loss_sum)
-        if grad_accum > 1:
-            torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
-                                grad_accum)
-        optimizer.apply()
-        return {"loss": loss_sum / grad_accum}
+        with span("zs3.train.step"):
+            with span("zs3.train.prepare"):
+                if device_preprocess:
+                    batch = preprocess_on_device(batch, seed, optimizer.step, shard)
+                images, labels = batch["image"], batch["label"]
+                if images.shape[0] % grad_accum:
+                    where = f" on each of {shard[1]} ranks" if shard[1] > 1 else ""
+                    raise ValueError(f"batch size {images.shape[0]}{where} is not divisible "
+                                     f"by grad_accum {grad_accum}")
+                model.train()
+                set_dropout_generator(model, step_generator(seed, optimizer.step,
+                                                            images.device), shard)
+                optimizer.zero_grad()
+            loss_sum = None
+            with quant.qat() if qat else contextlib.nullcontext():
+                for mb_images, mb_labels in zip(images.chunk(grad_accum),
+                                                labels.chunk(grad_accum)):
+                    with span("zs3.train.forward"):
+                        loss = micro_loss(model, mb_images, mb_labels)
+                    with span("zs3.train.backward"):
+                        loss.backward()
+                    loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            if mesh is not None:
+                loss_sum = all_reduce_grads_(model.parameters(), mesh, extra=loss_sum)
+            if grad_accum > 1:
+                torch._foreach_div_([p.grad for p in model.parameters() if p.grad is not None],
+                                    grad_accum)
+            with span("zs3.train.optimizer"):
+                optimizer.apply()
+            return {"loss": loss_sum / grad_accum}
 
     return train_step
 

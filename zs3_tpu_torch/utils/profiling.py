@@ -1,14 +1,89 @@
 """Device-time attribution of a GPU loop with torch.profiler
 (the counterpart of zs3_tpu.utils.profiling's trace summary), a step
-timer, and `cli profile`."""
+timer, `cli profile`, and the spans the train step opens (`span`,
+`recording`)."""
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+# One span: (name, parent's name or None, call id, start ns, end ns), on
+# time.perf_counter_ns.  The spans of one outermost span (one train_step
+# call) share its call id.
+SpanRecord = Tuple[str, Optional[str], int, int, int]
+
+
+class _Recorder:
+    def __init__(self):
+        self.records: List[SpanRecord] = []
+        self.open: List[str] = []  # the spans open now, outermost first
+        self.calls = 0
+
+
+_recorder: Optional[_Recorder] = None
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "recorder", "range", "parent", "call", "start")
+
+    def __init__(self, name: str, recorder: Optional[_Recorder], profiled: bool):
+        self.name, self.recorder = name, recorder
+        self.range = torch.autograd.profiler.record_function(name) if profiled else None
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        rec = self.recorder
+        if rec is not None:
+            if not rec.open:
+                rec.calls += 1
+            self.parent = rec.open[-1] if rec.open else None
+            self.call = rec.calls
+            rec.open.append(self.name)
+            self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.recorder
+        if rec is not None:
+            end = time.perf_counter_ns()
+            rec.open.pop()
+            rec.records.append((self.name, self.parent, self.call, self.start, end))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager over one phase of the program.  Under
+    `recording()` it records (name, parent, call id, start ns, end ns) on
+    the host's perf_counter_ns when it closes; while torch.profiler
+    records, it is also a record_function range, so the phase sits on the
+    kernels' timeline.  With both off it is one shared no-op object."""
+    profiled = torch.autograd._profiler_enabled()
+    if _recorder is None and not profiled:
+        return _OFF
+    return _Span(name, _recorder, profiled)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List[SpanRecord]]:
+    """Records every span that closes in its extent into the list it
+    yields; the recorder before it comes back at its end.  The spans must
+    open on one thread: their parents follow one stack."""
+    global _recorder
+    saved, _recorder = _recorder, _Recorder()
+    try:
+        yield _recorder.records
+    finally:
+        _recorder = saved
 
 
 def profile_device(fn: Callable[[], None], steps: int) -> Dict:
