@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from zs3_tpu_torch import quant
 from zs3_tpu_torch.core.mesh import all_reduce_autograd, world_size
+from zs3_tpu_torch.ops import bn_kernels
 from zs3_tpu_torch.parallel import spatial
 
 # From this dilation on, a "same" conv runs as space-to-batch.  cuDNN's
@@ -167,37 +168,43 @@ class BatchNorm(nn.BatchNorm2d):
         running_mean = m * running_mean + (1 - m) * mean
         running_var  = m * running_var  + (1 - m) * var_biased
     (m = flax's momentum; nn.BatchNorm2d would use the unbiased variance,
-    n/(n-1) larger).  On one rank the batch statistics come from the
-    normalisation's own saved mean and inverse std, so no second
-    reduction runs.  With more than one rank (a process group of world
-    size > 1) they are the global batch's: `synced_batch_norm`.  While
-    `update_stats` is False (a checkpointed block recomputing its
-    forward) the running statistics stay as they are.
+    n/(n-1) larger).  On one rank that is ops/bn_kernels.py's
+    `batch_norm_train`: on a CUDA tensor two hand-written kernels each
+    way, which also update the running statistics; on the CPU the plain
+    version, torch.native_batch_norm with the statistics recovered from
+    its saved mean and inverse std.  With more than one rank (a process
+    group of world size > 1) the statistics are the global batch's:
+    `synced_batch_norm`.  While `update_stats` is False (a checkpointed
+    block recomputing its forward) the running statistics stay as they
+    are.  `relu=True`, at the call or (where the layer sits in an
+    nn.Sequential) at construction, applies the ReLU that follows the
+    layer where it sits in its model; the kernels fold it into their
+    passes.
     """
 
-    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
+                 relu: bool = False):
         super().__init__(features, eps=epsilon, momentum=1.0 - momentum)
         self.update_stats = True
+        self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        relu = relu or self.relu
         if x.is_meta:  # the spatial planner's pass: shapes only
             return x
+        if self.training and world_size() == 1:
+            return bn_kernels.batch_norm_train(
+                x, self.weight, self.bias, self.running_mean, self.running_var,
+                self.num_batches_tracked, self.eps, self.momentum, relu, self.update_stats)
         if not self.training:
-            return super().forward(x)
-        if world_size() > 1:
-            out, mean, var = synced_batch_norm(x, self.weight, self.bias, self.eps)
+            out = super().forward(x)
         else:
-            out, mean, invstd = torch.native_batch_norm(
-                x, self.weight, self.bias, None, None, True, 0.0, self.eps
-            )
-            var = invstd.float().reciprocal().square() - self.eps
-        if self.update_stats:
-            with torch.no_grad():
-                keep = 1.0 - self.momentum
-                self.running_mean.mul_(keep).add_(mean.float(), alpha=self.momentum)
-                self.running_var.mul_(keep).add_(var.clamp(min=0.0), alpha=self.momentum)
-                self.num_batches_tracked.add_(1)
-        return out
+            out, mean, var = synced_batch_norm(x, self.weight, self.bias, self.eps)
+            if self.update_stats:
+                bn_kernels.update_running_stats(self.running_mean, self.running_var,
+                                                self.num_batches_tracked, mean, var,
+                                                self.momentum)
+        return F.relu(out) if relu else out
 
 
 def synced_batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -317,8 +324,7 @@ class ConvBN(nn.Module):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
-        return F.relu(x) if self.relu else x
+        return self.bn(self.conv(x), relu=self.relu)
 
 
 def stem_conv(in_channels: int = 3, features: int = 64, dtype=torch.float32) -> Conv:

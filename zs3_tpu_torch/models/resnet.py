@@ -97,8 +97,8 @@ class Bottleneck(nn.Module):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.bn2(self.conv2(y), relu=True)
         y = self.bn3(self.conv3(y))
         return F.relu(y + residual)
 
@@ -165,7 +165,7 @@ class ResNetAtrous(nn.Module):
 
     def forward_nchw(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.compute_dtype)
-        x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
+        x = max_pool_3x3_s2(self.bn1(self.conv1(x), relu=True))
         low_level = self.layer1(x)  # 256ch @ os4
         x = self.layer4(self.layer3(self.layer2(low_level)))
         return x, low_level

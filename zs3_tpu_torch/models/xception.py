@@ -14,6 +14,11 @@ blockN.rep, a Sequential of [ReLU, SeparableConv(conv1, bn, pointwise),
 BatchNorm] per unit with the leading ReLU dropped when the block does not
 start with one; conv3..5 with bn3..5.  zs3_tpu's SeparableConv holds the
 trailing BN itself (bn_point): here it is the next entry of `rep`, or bnK.
+The ReLU that opens a unit after the first is the BN's that ends the
+unit before (BatchNorm(relu=True), an nn.Identity in the ReLU's place),
+as the stem and the exit flow's BNs take theirs, so train mode runs it
+inside the BN's kernels; the modules' names and the state_dict keys stay
+as they are.
 """
 
 from __future__ import annotations
@@ -89,10 +94,11 @@ class XceptionBlock(nn.Module):
         else:
             self.skip = None
         rep: List[nn.Module] = []
-        for cin, cout, s, d in block_units(in_channels, planes, reps, stride, dilation,
-                                            grow_first, is_last):
-            rep += [nn.ReLU(), SeparableConv(cin, cout, s, d, dtype=dtype, **bn_kw),
-                    BatchNorm(cout, bn_momentum, bn_epsilon)]
+        units = block_units(in_channels, planes, reps, stride, dilation, grow_first, is_last)
+        for k, (cin, cout, s, d) in enumerate(units):  # a unit's BN takes the next one's ReLU
+            rep += [nn.Identity() if k else nn.ReLU(),
+                    SeparableConv(cin, cout, s, d, dtype=dtype, **bn_kw),
+                    BatchNorm(cout, bn_momentum, bn_epsilon, relu=k + 1 < len(units))]
         if not start_with_relu:
             rep = rep[1:]
         self.rep = nn.Sequential(*rep)
@@ -130,15 +136,15 @@ class AlignedXception(nn.Module):
 
     def forward_nchw(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.compute_dtype)
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = self.bn1(self.conv1(x), relu=True)
+        x = self.bn2(self.conv2(x), relu=True)
         low_level = F.relu(self.block1(x))  # 128ch @ os4
         x = self.block3(self.block2(low_level))
         for i in range(4, 21):
             x = getattr(self, f"block{i}")(x)
         x = F.relu(x)
         for k in (3, 4, 5):
-            x = F.relu(getattr(self, f"bn{k}")(getattr(self, f"conv{k}")(x)))
+            x = getattr(self, f"bn{k}")(getattr(self, f"conv{k}")(x), relu=True)
         return x, low_level
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
