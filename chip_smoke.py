@@ -156,7 +156,7 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 SLEEP_CYCLES = 100_000_000  # ~50 ms of device clock, the shortest sleep
 KERNEL_SOURCES = ("upsample_argmax", "mmd_kernel_sum", "classify_resize", "fused_bottleneck",
-                  "batch_norm_train")
+                  "batch_norm_train", "split_attention")
 FULL_WIDTH = [
     "--dataset", "synthetic", "--backbone", "resnet101", "--out-stride", "16",
     "--crop-size", "513", "--base-size", "513", "--compute-dtype", "bfloat16",
@@ -1632,6 +1632,212 @@ def phase_bn():
         emit(phase=phase, name=name, **row)
         out[name] = row
     return out
+
+
+# ResNeSt-101's split-attention tensors u (N, H, W, 2C) in the resnest cell
+# (batch 24 at 512x512, os 8): stages 1, 2 (its last three blocks), 3, 4.
+SPLAT_SHAPES = (("stage1", (24, 128, 128, 128)), ("stage2", (24, 64, 64, 256)),
+                ("stage3", (24, 64, 64, 512)), ("stage4", (24, 64, 64, 1024)))
+
+
+def phase_splat():
+    """The split-attention kernels (ops/splat_kernels.py) at SPLAT_SHAPES in
+    bf16: the pair each way (forward splat_gap + splat_combine, backward
+    splat_bwd_reduce + splat_dx, the gate's logits and the mean's gradient
+    given) against the plain version (the four plain ops) and the library
+    route (split, sum, adaptive_avg_pool2d, softmax and the multiply-add
+    under autograd), each kernel's device ms (time_ms of it alone, 20
+    calls back to back: where u fits in L2, at stage 2, the calls after
+    the first find some of it there) beside its bytes bound at 3.35 TB/s
+    (benchmark/counts/splat.py's kernel_bytes, the rule the
+    splat_roofline metric reads), and the host's time to queue the pair."""
+    import torch.nn.functional as F
+
+    from benchmark.counts.splat import kernel_bytes
+
+    from zs3_tpu_torch.ops import splat_kernels
+
+    phase = "splat"
+    out = {}
+    l2_bytes = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 * 2**20)
+    for name, (n, h, w, c2) in SPLAT_SHAPES:
+        c = c2 // 2
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        u = torch.randn((n, c2, h, w), device="cuda", generator=gen).abs().to(torch.bfloat16)
+        u = u.contiguous(memory_format=torch.channels_last)
+        z = torch.randn((n, c2), device="cuda", generator=gen) * 2  # the gate's: f32
+        dy = torch.randn((n, c, h, w), device="cuda", generator=gen).to(torch.bfloat16)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+        dg = torch.randn((n, c), device="cuda", generator=gen)
+        g = u.new_empty((n, c), dtype=torch.float32)
+        y = torch.empty_like(dy)
+        a = u.new_empty((n, c2), dtype=torch.float32)
+        dz = u.new_empty((n, c2), dtype=torch.float32)
+        du = torch.empty_like(u)
+        launch = splat_kernels._launch
+
+        def kernels():
+            launch("zs3_splat_gap", u, (u.data_ptr(), g.data_ptr()), reduces=True)
+            launch("zs3_splat_combine", u, (u.data_ptr(), z.data_ptr(), y.data_ptr(),
+                                            a.data_ptr()), reduces=False)
+            launch("zs3_splat_bwd_reduce", u, (dy.data_ptr(), u.data_ptr(), a.data_ptr(),
+                                               dz.data_ptr()), reduces=True)
+            launch("zs3_splat_dx", u, (dy.data_ptr(), a.data_ptr(), dg.data_ptr(),
+                                       du.data_ptr()), reduces=False)
+            return g, y, dz, du
+
+        def plain():
+            yp, ap = splat_kernels.combine_reference(u, z)
+            return (splat_kernels.gap_reference(u), yp,
+                    splat_kernels.bwd_reduce_reference(dy, u, ap),
+                    splat_kernels.dx_reference(dy, ap, dg))
+
+        ul, zl = u.detach().requires_grad_(True), z.detach().requires_grad_(True)
+
+        def library():
+            u0, u1 = torch.split(ul, c, dim=1)
+            gl = F.adaptive_avg_pool2d(u0 + u1, 1)
+            al = torch.softmax(zl.view(n, 2, c), dim=1).to(ul.dtype)
+            yl = al[:, 0, :, None, None] * u0 + al[:, 1, :, None, None] * u1
+            return (gl, yl, *torch.autograd.grad((yl, gl), (ul, zl),
+                                                 (dy, dg.view(n, c, 1, 1).to(gl.dtype))))
+
+        got, want = kernels(), plain()
+        torch.cuda.synchronize()
+        errs = {k: float((x.float() - v.float()).abs().max()) / float(v.float().abs().max())
+                for k, x, v in zip(("g", "out", "dz", "du"), got, want)}
+        check(errs["g"] <= 2**-7 and errs["out"] <= 2**-7 and errs["dz"] <= 2**-6
+              and errs["du"] <= 2**-7, phase, f"{name}: kernels against plain {errs}")
+        u_bytes = n * h * w * c2 * 2
+        bytes_ = kernel_bytes(u_bytes, l2_bytes)
+        alone = {  # each kernel on its own, its inputs made by the calls above
+            "splat_gap": lambda: launch("zs3_splat_gap", u, (u.data_ptr(), g.data_ptr()),
+                                        reduces=True),
+            "splat_combine": lambda: launch("zs3_splat_combine", u, (
+                u.data_ptr(), z.data_ptr(), y.data_ptr(), a.data_ptr()), reduces=False),
+            "splat_bwd_reduce": lambda: launch("zs3_splat_bwd_reduce", u, (
+                dy.data_ptr(), u.data_ptr(), a.data_ptr(), dz.data_ptr()), reduces=True),
+            "splat_dx": lambda: launch("zs3_splat_dx", u, (
+                dy.data_ptr(), a.data_ptr(), dg.data_ptr(), du.data_ptr()), reduces=False),
+        }
+        per_kernel = {k: time_ms(fn, reps=20, rounds=5, what=f"{name} {k}")
+                      for k, fn in alone.items()}
+        row = {
+            "shape": [n, h, w, c2], "dtype": "bfloat16", "errors": errs, "u_bytes": u_bytes,
+            "l2_bytes": l2_bytes,
+            "kernels": {k: {"ms": per_kernel[k], "hbm_bytes": b,
+                            "bound_ms": b / HBM_BYTES_PER_S * 1e3,
+                            "share": b / HBM_BYTES_PER_S * 1e3 / per_kernel[k]
+                            if per_kernel[k] else None}
+                        for k, b in bytes_.items()},
+            "kernel_ms": time_ms(kernels, reps=10, rounds=5, what=name),
+            "bound_ms": sum(bytes_.values()) / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": time_ms(plain, reps=10, rounds=5, what=name),
+            "library_ms": time_ms(library, reps=10, rounds=5, what=name),
+            "host_ms": host_ms(kernels), "plain_host_ms": host_ms(plain),
+            "library_host_ms": host_ms(library),
+        }
+        emit(phase=phase, name=name, **row)
+        out[name] = row
+        del u, z, dy, dg, g, y, a, dz, du, ul, zl, got, want
+    return out
+
+
+def grouped_conv_routes_ms():
+    """Device ms of one forward and backward of ResNeSt's dilated grouped
+    convs (groups 2, 3x3, bf16, channels_last) at the cell's stage-3 and
+    stage-4 shapes, as cuDNN runs them (a stream per group), as one conv
+    per group on the current stream (the route models/layers.py takes on
+    the card) and as space-to-batch; and the streams each route's kernels
+    ran on."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zs3_tpu_torch.models.layers import conv2d_per_group, conv2d_space_to_batch
+
+    out = {}
+    for cin, d in ((256, 2), (512, 4)):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn((24, cin, 64, 64), device="cuda", generator=gen).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        wt = (torch.randn((2 * cin, cin // 2, 3, 3), device="cuda", generator=gen) * 0.05
+              ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wt.requires_grad_(True)
+        dy = torch.randn((24, 2 * cin, 64, 64), device="cuda", generator=gen).to(torch.bfloat16)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+        routes = {
+            "cudnn": lambda: F.conv2d(x, wt, None, 1, d, d, 2),
+            "per_group": lambda: conv2d_per_group(x, wt, None, 1, d, d, 2),
+            "space_to_batch": lambda: conv2d_space_to_batch(x, wt, None, d, 2),
+        }
+
+        def call(name):
+            return lambda: torch.autograd.grad(routes[name](), (x, wt), dy)
+
+        ref = call("space_to_batch")()
+        row = {}
+        for name in routes:
+            got = call(name)()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call(name)()
+                torch.cuda.synchronize()
+            streams = {e.device_resource_id for e in prof.events()
+                       if e.device_type == DeviceType.CUDA}
+            row[name] = {
+                "ms": time_ms(call(name), reps=5, rounds=3),
+                "streams": len(streams),
+                "rel_err": max(float((p.float() - q.float()).abs().max())
+                               / float(q.float().abs().max()) for p, q in zip(got, ref)),
+            }
+        out[f"c{cin}_d{d}"] = row
+    emit(phase="grouped conv routes", **out)
+    return out
+
+
+def phase_resnest():
+    """ResNeSt-101 at os 8 through the CLI on the card (512x512, bf16): a
+    fabricated Pascal-Context tree, `train-seen --backbone resnest101
+    --out-stride 8 --dataset context` (split 2, batch 8, 2 steps, no
+    validation), then `evaluate` of its checkpoint; the split attention's
+    launches are 33 a forward (2 train forwards, 1 eval batch), and every
+    train-mode BN takes the BN kernels.  Removes its tree and checkpoints."""
+    from zs3_tpu_torch import cli
+    from zs3_tpu_torch.data import fabricate
+    from zs3_tpu_torch.ops import bn_kernels, splat_kernels
+
+    phase = "resnest"
+    root = os.path.join(SCRATCH, "resnest_data")
+    shutil.rmtree(root, ignore_errors=True)
+    fabricate.fabricate_context_tree(root, 24, 4)  # 16 without cow or motorbike: 2 batches
+    common = ["--backbone", "resnest101", "--out-stride", "8", "--dataset", "context",
+              "--data-root", root, "--unseen-split", "2", "--crop-size", "512",
+              "--base-size", "512", "--compute-dtype", "bfloat16", "--seed", "0",
+              "--device", "cuda", *CKPT_ARGS]
+    rows = {}
+    for command, extra, forwards in (
+            ("train-seen", ["--batch-size", "8", "--epochs", "1", "--steps-per-epoch", "2",
+                            "--no-val"], 2),
+            ("evaluate", ["--eval-batch-size", "4", "--auto-resume"], 1)):
+        before = (splat_kernels.split_attention.launches, bn_kernels.batch_norm_train.launches)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result, _ = cli.run([command, *common, *extra])
+        torch.cuda.synchronize()
+        splat = splat_kernels.split_attention.launches - before[0]
+        bn = bn_kernels.batch_norm_train.launches - before[1]
+        check(splat == 33 * forwards, phase, f"{command}: {splat} split attentions, "
+              f"want {33 * forwards}")
+        check((bn > 0) == (command == "train-seen"), phase, f"{command}: {bn} BN kernel calls")
+        rows[command] = {"seconds": time.time() - t0, "split_attention_launches": splat,
+                         "bn_launches": bn,
+                         "result": {k: v for k, v in (result or {}).items()
+                                    if isinstance(v, (int, float))}}
+    emit(phase=phase, **rows, ok=True)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return rows
 
 
 def phase_slice():
@@ -5673,7 +5879,10 @@ def main() -> int:
     phase_k5_edges()
     phase_dilated()
     phase_bn()
-    lap("kernels, mmd kernels, tail kernels, bottleneck edges, dilated, bn")
+    phase_splat()
+    grouped_conv_routes_ms()
+    phase_resnest()
+    lap("kernels, mmd kernels, tail kernels, bottleneck edges, dilated, bn, splat, resnest")
     launches = phase_slice()
     zs3_launches = phase_zs3()
     graph_launches = phase_graph()

@@ -178,8 +178,10 @@ def test_space_to_batch_carries_groups(d, rng):
 
 
 def test_conv_routes_dilated_grouped_convs_through_space_to_batch(rng, monkeypatch):
-    """Conv takes space-to-batch for a grouped "same" conv from dilation 2
-    and for a dense one from dilation 11, and F.conv2d's result either way."""
+    """Conv takes space-to-batch for a depthwise "same" conv from dilation 2
+    and for a dense one, or one of fewer groups than channels (ResNeSt's 2,
+    which cuDNN runs faster), from dilation 11, and F.conv2d's result
+    either way."""
     from zs3_tpu_torch.models import layers
 
     taken = []
@@ -187,8 +189,8 @@ def test_conv_routes_dilated_grouped_convs_through_space_to_batch(rng, monkeypat
     monkeypatch.setattr(layers, "conv2d_space_to_batch",
                         lambda *args: taken.append(args[3]) or plain(*args))
     x = _nchw(rng.standard_normal((2, 13, 13, 8)).astype(np.float32))
-    for d, groups, routed in ((1, 8, False), (2, 8, True), (4, 4, True), (2, 1, False),
-                              (12, 1, True)):
+    for d, groups, routed in ((1, 8, False), (2, 8, True), (4, 8, True), (4, 4, False),
+                              (2, 2, False), (12, 2, True), (2, 1, False), (12, 1, True)):
         conv = layers.Conv(8, 8, 3, padding=d, dilation=d, groups=groups)
         taken.clear()
         with torch.no_grad():

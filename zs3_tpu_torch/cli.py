@@ -64,7 +64,7 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--use-sbd", action="store_true", default=None,
                    help="train on VOC2012 + SBD (pascal)")
     p.add_argument("--backbone", choices=["resnet101", "resnet50", "xception", "mobilenet",
-                                          "drn"])
+                                          "drn", "resnest101"])
     p.add_argument("--out-stride", type=int, choices=[8, 16])
     p.add_argument("--base-size", type=int)
     p.add_argument("--crop-size", type=int)

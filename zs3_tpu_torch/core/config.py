@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 class ModelConfig:
     """DeepLabv3+ assembly (reference: zs3/modeling/deeplab.py class DeepLab)."""
 
-    backbone: str = "resnet101"  # resnet101 | resnet50 | xception | mobilenet | drn
+    backbone: str = "resnet101"  # resnet101 | resnet50 | xception | mobilenet | drn | resnest101
     output_stride: int = 16  # 16 or 8
     num_classes: int = 21
     # 256-d pre-logit pixel embedding width (the ZS3 feature tap).

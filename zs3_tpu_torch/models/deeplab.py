@@ -19,11 +19,13 @@ Backbones, as zs3_tpu builds them: ``resnet101`` (or ``resnet``) and
 ``resnet50`` (ResNetAtrous; `layers=` gives narrow test ResNets),
 ``xception`` (AlignedXception), ``mobilenet`` (MobileNetV2Backbone) and
 ``drn`` (DRN54, natively os8: its ASPP takes the os8 rates whatever
-`output_stride` says).  `remat` reaches the ResNets only, as in zs3_tpu.
+`output_stride` says); and the port's own ``resnest101`` (ResNeSt, split
+attention; `layers=` as for the ResNets).  `remat` reaches the ResNets
+and ResNeSt only.
 
 The state_dict follows tests/torch_oracle.py: the backbone's upstream
-checkpoint keys under ``backbone.`` (torchvision ResNet, or the names of
-tests/torch_oracle_backbones.py), then ``aspp1..4``, ``global_pool``,
+checkpoint keys under ``backbone.`` (torchvision ResNet, the names of
+tests/torch_oracle_backbones.py, or mmsegmentation's ResNeSt), then ``aspp1..4``, ``global_pool``,
 ``project``, ``low_proj``, ``fuse1``, ``fuse2`` and ``classifier`` at the
 top level.
 """
@@ -42,6 +44,7 @@ from zs3_tpu_torch.models.decoder import Decoder
 from zs3_tpu_torch.models.drn import DRN54
 from zs3_tpu_torch.models.layers import BatchNorm, Conv
 from zs3_tpu_torch.models.mobilenet import MobileNetV2Backbone
+from zs3_tpu_torch.models.resnest import ResNeSt
 from zs3_tpu_torch.models.resnet import ResNetAtrous
 from zs3_tpu_torch.models.xception import AlignedXception
 from zs3_tpu_torch.ops import tail_kernels
@@ -53,9 +56,10 @@ RESNET_LAYERS = {
     "resnet101": (3, 4, 23, 3),
     "resnet50": (3, 4, 6, 3),
 }
+RESNEST_LAYERS = {"resnest101": (3, 4, 23, 3)}
 # backbone -> (high-level width, low-level width)
 BACKBONE_WIDTHS = {
-    **{name: (2048, 256) for name in RESNET_LAYERS},
+    **{name: (2048, 256) for name in {**RESNET_LAYERS, **RESNEST_LAYERS}},
     "xception": (2048, 128),
     "mobilenet": (320, 24),
     "drn": (512, 256),
@@ -64,13 +68,16 @@ BACKBONE_WIDTHS = {
 
 def build_backbone(name: str, output_stride: int, bn_kw, dtype: torch.dtype,
                    layers: Optional[Sequence[int]] = None, remat: bool = False) -> nn.Module:
-    """The backbone `name`; `layers` sets a ResNet's depth (the backbone
-    name's when None)."""
-    if layers is not None and name not in RESNET_LAYERS:
-        raise ValueError(f"layers= sets a ResNet's depth, not {name!r}'s")
+    """The backbone `name`; `layers` sets a ResNet's or ResNeSt's depth
+    (the backbone name's when None)."""
+    if layers is not None and name not in {**RESNET_LAYERS, **RESNEST_LAYERS}:
+        raise ValueError(f"layers= sets a ResNet's or ResNeSt's depth, not {name!r}'s")
     if name in RESNET_LAYERS:
         return ResNetAtrous(layers=tuple(layers or RESNET_LAYERS[name]),
                             output_stride=output_stride, dtype=dtype, remat=remat, **bn_kw)
+    if name in RESNEST_LAYERS:
+        return ResNeSt(layers=tuple(layers or RESNEST_LAYERS[name]),
+                       output_stride=output_stride, dtype=dtype, remat=remat, **bn_kw)
     if name == "xception":
         return AlignedXception(output_stride, dtype=dtype, **bn_kw)
     if name == "mobilenet":

@@ -43,13 +43,37 @@ from zs3_tpu_torch.parallel import spatial
 # against 0.18 ms for the os16 ASPP branch at 4x33x33x2048 -> 256;
 # chip_smoke.py times both, PERF.md has the numbers).
 SPACE_TO_BATCH_MIN_DILATION = 11
-# From this dilation on, a grouped "same" conv runs as space-to-batch too.
+# From this dilation on, a depthwise "same" conv runs as space-to-batch too.
 # On an H100, cuDNN's bf16 channels_last depthwise 3x3 at dilation 2 or 4
 # takes some 45x its bytes bound (0.481 ms for 8x1024x33x33 at d = 2, 0.0202
 # at d = 1); space-to-batch takes 0.148 ms forward, and 0.342 against 0.611
 # forward and backward (chip_smoke.py::depthwise_routes_ms times the routes,
-# PERF.md has the numbers).
+# PERF.md has the numbers).  A conv of few groups does not: ResNeSt's 3x3
+# of 2 groups (24x256x64x64 -> 512 at d = 2, 24x512x64x64 -> 1024 at d = 4)
+# takes 1.34 and 3.31 ms forward and backward as conv2d_per_group, 1.66 and
+# 3.36 as cuDNN's grouped conv and 2.23 and 4.24 as space-to-batch
+# (chip_smoke.py::grouped_conv_routes_ms).
 GROUPED_SPACE_TO_BATCH_MIN_DILATION = 2
+
+
+def conv2d_per_group(x: torch.Tensor, weight: torch.Tensor, bias, stride, padding, dilation,
+                     groups: int) -> torch.Tensor:
+    """F.conv2d with `groups`, as one ungrouped conv per group on the
+    current stream, the outputs concatenated over channels.
+
+    On the card, cuDNN runs a grouped conv that is not depthwise (ResNeSt's
+    2-group 3x3) as a channel slice and a conv per group, each group on a
+    stream of its own, both forward and backward.  Kernels on two streams
+    at once overlap, so their device times no longer add up to the time
+    the card was busy, and the step's order is no longer the stream's.
+    One conv per group on the current stream does the same slices and
+    convs in turn."""
+    cin, cout = x.shape[1] // groups, weight.shape[0] // groups
+    return torch.cat([
+        F.conv2d(x[:, g * cin:(g + 1) * cin], weight[g * cout:(g + 1) * cout],
+                 None if bias is None else bias[g * cout:(g + 1) * cout],
+                 stride, padding, dilation)
+        for g in range(groups)], 1)
 
 
 def conv2d_space_to_batch(
@@ -90,8 +114,9 @@ class Conv(nn.Conv2d):
     `groups` as zs3_tpu's feature_group_count (groups == in_channels is a
     depthwise conv).
 
-    A "same" conv of large dilation (a grouped one from dilation 2) runs
-    as `conv2d_space_to_batch`.  As
+    A "same" conv of large dilation (a depthwise one from dilation 2) runs
+    as `conv2d_space_to_batch`; on the card a grouped conv that is not
+    depthwise runs as `conv2d_per_group`.  As
     zs3_tpu's _ConvImpl: an eligible conv (ungrouped, >= MIN_QUANT_IN_CH
     input channels) whose `quant_path` has a scale under quant.quantized()
     runs as quant.int8_conv; else, under quant.qat() and not excluded, it
@@ -146,8 +171,9 @@ class Conv(nn.Conv2d):
         x = x.to(self.compute_dtype)
         weight = weight.to(self.compute_dtype)
         d, k = self.dilation[0], self.kernel_size[0]
-        min_dilation = (SPACE_TO_BATCH_MIN_DILATION if self.groups == 1
-                        else GROUPED_SPACE_TO_BATCH_MIN_DILATION)
+        depthwise = self.groups > 1 and self.groups == self.in_channels
+        min_dilation = (GROUPED_SPACE_TO_BATCH_MIN_DILATION if depthwise
+                        else SPACE_TO_BATCH_MIN_DILATION)
         if (
             d >= min_dilation
             and self.stride == (1, 1)
@@ -156,6 +182,9 @@ class Conv(nn.Conv2d):
             and self.padding == (d * (k - 1) // 2,) * 2
         ):
             return conv2d_space_to_batch(x, weight, bias, d, self.groups, pad_h)
+        if x.is_cuda and self.groups > 1 and not depthwise:
+            return conv2d_per_group(x, weight, bias, self.stride, padding, self.dilation,
+                                    self.groups)
         return F.conv2d(x, weight, bias, self.stride, padding, self.dilation, self.groups)
 
 

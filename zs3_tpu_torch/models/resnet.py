@@ -29,14 +29,46 @@ from zs3_tpu_torch.models.layers import (
 from zs3_tpu_torch.parallel import spatial
 
 
-class Bottleneck(nn.Module):
-    """1x1 reduce -> 3x3 (stride/dilation) -> 1x1 expand(4x) + skip.
+class RematBlock(nn.Module):
+    """A residual block whose `_forward` may be recomputed in the backward.
 
-    The stride sits on the 3x3 conv2, as in zs3_tpu and torchvision v1.5.
     With `remat`, a train-mode forward that records a graph runs under
     torch.utils.checkpoint (non-reentrant): the block keeps only its input
     and recomputes the rest in the backward, with its BN running
     statistics held still during the recompute (zs3_tpu's nn.remat).
+    """
+
+    remat = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            # The recompute runs in the backward (on CUDA, on autograd's
+            # thread): it re-enters the forward's quantization state and
+            # its place in a spatial sharding's plan.
+            state = quant.current(), spatial.current()
+            return checkpoint(self._forward, x, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  self._recomputing(*state)))
+        return self._forward(x)
+
+    @contextlib.contextmanager
+    def _recomputing(self, quant_state, space_state):
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
+        for bn in bns:
+            bn.update_stats = False
+        try:
+            with quant.restored(quant_state), spatial.restored(space_state):
+                yield
+        finally:
+            for bn in bns:
+                bn.update_stats = True
+
+
+class Bottleneck(RematBlock):
+    """1x1 reduce -> 3x3 (stride/dilation) -> 1x1 expand(4x) + skip.
+
+    The stride sits on the 3x3 conv2, as in zs3_tpu and torchvision v1.5.
+    `remat` as RematBlock's.
     """
 
     def __init__(
@@ -71,29 +103,6 @@ class Bottleneck(nn.Module):
             if downsample
             else None
         )
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.remat and self.training and torch.is_grad_enabled():
-            # The recompute runs in the backward (on CUDA, on autograd's
-            # thread): it re-enters the forward's quantization state and
-            # its place in a spatial sharding's plan.
-            state = quant.current(), spatial.current()
-            return checkpoint(self._forward, x, use_reentrant=False,
-                              context_fn=lambda: (contextlib.nullcontext(),
-                                                  self._recomputing(*state)))
-        return self._forward(x)
-
-    @contextlib.contextmanager
-    def _recomputing(self, quant_state, space_state):
-        bns = [m for m in self.modules() if isinstance(m, BatchNorm)]
-        for bn in bns:
-            bn.update_stats = False
-        try:
-            with quant.restored(quant_state), spatial.restored(space_state):
-                yield
-        finally:
-            for bn in bns:
-                bn.update_stats = True
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)

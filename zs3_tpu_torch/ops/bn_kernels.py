@@ -111,13 +111,16 @@ def _geometry(rows: int, channels: int, dtype: torch.dtype, device_index: int):
 
 # Per (device, stream): the slabs' partials and the channel blocks' tickets
 # (zero between launches: the last CTA resets its own).  Kernels on one
-# stream run in turn, so they share these; the lock keeps a buffer that is
-# replaced by a larger one alive until every launch that took it is queued.
+# stream run in turn, so they share these (the split-attention kernels,
+# ops/splat_kernels.py, too); the lock keeps a buffer that is replaced by a
+# larger one alive until every launch that took it is queued.
 _WORK: dict = {}
-_WORK_LOCK = threading.Lock()
+WORK_LOCK = threading.Lock()
 
 
-def _workspace(device: torch.device, stream: int, nbytes: int, tickets: int):
+def workspace(device: torch.device, stream: int, nbytes: int, tickets: int):
+    """(partials of at least `nbytes`, at least `tickets` zeroed int32
+    tickets) for launches on `stream`, taken under WORK_LOCK."""
     part, count = _WORK.get((device.index, stream), (None, None))
     if part is None or part.numel() < nbytes:
         part = torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -127,11 +130,13 @@ def _workspace(device: torch.device, stream: int, nbytes: int, tickets: int):
     return part, count
 
 
-def dense(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """t in `dtype` and channels_last at a 16-byte aligned address, as the
-    kernels read it: t itself where it is so already, else a copy."""
-    t = t.to(dtype).contiguous(memory_format=torch.channels_last)
-    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.channels_last)
+def dense(t: torch.Tensor, dtype: torch.dtype,
+          memory_format: torch.memory_format = torch.channels_last) -> torch.Tensor:
+    """t in `dtype` and `memory_format` (channels_last) at a 16-byte aligned
+    address, as the kernels read it: t itself where it is so already, else
+    a copy."""
+    t = t.to(dtype).contiguous(memory_format=memory_format)
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=memory_format)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -156,8 +161,8 @@ def _launch(fn: str, x: torch.Tensor, layout: Plan, geometry, pointers, tail) ->
     stream = torch._C._cuda_getCurrentRawStream(index)
     switch = index != torch.cuda.current_device()
     with torch.cuda.device(index) if switch else contextlib.nullcontext():
-        with _WORK_LOCK:
-            part, tickets = _workspace(
+        with WORK_LOCK:
+            part, tickets = workspace(
                 x.device, stream, 2 * layout.slabs * x.shape[1] * acc_dtype(x.dtype).itemsize,
                 layout.cblocks)
             rc = getattr(lib, fn)(geometry, *pointers, part.data_ptr(), tickets.data_ptr(),
